@@ -1,0 +1,99 @@
+"""FedAvg experiment main (parity:
+fedml_experiments/standalone/fedavg/main_fedavg.py), the port's
+counterpart of ``fedml_tpu/experiments/main_fedavg.py``.
+
+Runs the ``simulation`` backend (FedAvgAPI) on ``--device`` (default
+``cuda``; no GPU and no ``--device cpu`` raises). The other backends,
+``--checkpoint_dir``, ``--fused_rounds`` and ``--obs_dir`` are not ported
+yet and raise ``NotImplementedError``.
+
+Usage: python -m fedml_tpu_torch.experiments.main_fedavg \
+    --dataset femnist_gen --client_num_in_total 200 --client_num_per_round 10 \
+    --batch_size 20 --lr 0.1 --comm_round 5
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from fedml_tpu_torch.experiments.args import (add_federated_args,
+                                              build_dataset_and_model)
+from fedml_tpu_torch.trainer.functional import TrainConfig
+from fedml_tpu_torch.utils.device import resolve_device
+from fedml_tpu_torch.utils.metrics import MetricsSink
+
+
+def make_train_config(args) -> TrainConfig:
+    return TrainConfig(epochs=args.epochs, batch_size=args.batch_size,
+                       lr=args.lr, client_optimizer=args.client_optimizer,
+                       wd=args.wd, compute_dtype=args.compute_dtype,
+                       accum_steps=args.accum_steps,
+                       lr_decay_round=args.lr_decay_round)
+
+
+def run_simulation(args, ds, model, task, sink):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+
+    cfg = FedAvgConfig(comm_round=args.comm_round,
+                       client_num_per_round=args.client_num_per_round,
+                       frequency_of_the_test=args.frequency_of_the_test,
+                       seed=args.seed,
+                       eval_train_subsample=args.eval_train_subsample,
+                       prefetch_depth=args.prefetch_depth,
+                       obs_dir=args.obs_dir,
+                       train=make_train_config(args))
+    api = FedAvgAPI(ds, model, task=task, config=cfg, device=args.device)
+    rec = {}
+    for r in range(cfg.comm_round):
+        api.run_round(r)
+        if r % cfg.frequency_of_the_test == 0 or r == cfg.comm_round - 1:
+            rec = api.evaluate(r)
+            sink.log(rec, step=r)
+    return rec
+
+
+def _not_ported(args) -> None:
+    """Raise for the flags whose paths this slice does not run yet, before
+    any data is built."""
+    if args.backend != "simulation":
+        raise NotImplementedError(
+            f"--backend {args.backend} is not ported yet: ROADMAP Queue 1 "
+            "(spmd: item 26; inproc/tcp/grpc cross-silo: item 22)")
+    if args.fused_rounds:
+        raise NotImplementedError(
+            "--fused_rounds is not ported yet: ROADMAP Queue 1, Slice A "
+            "item 7 (FusedRounds)")
+    if args.checkpoint_dir:
+        raise NotImplementedError(
+            "--checkpoint_dir is not ported yet: ROADMAP Queue 1, item 24 "
+            "(utils/checkpoint.py)")
+
+
+def apply_ci_truncation(args):
+    """--ci 1 = smoke-run truncation (clamps rounds and participants)."""
+    if args.ci:
+        args.comm_round = min(args.comm_round, 2)
+        args.client_num_per_round = min(args.client_num_per_round, 4)
+        args.frequency_of_the_test = 1
+    return args
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser("fedml_tpu_torch fedavg")
+    add_federated_args(parser)
+    args = apply_ci_truncation(parser.parse_args(argv))
+    resolve_device(args.device)  # no GPU and no --device cpu: raise now
+    _not_ported(args)
+    logging.basicConfig(level=logging.INFO)
+    ds, model, task = build_dataset_and_model(args)
+    sink = MetricsSink(args.run_dir, config=vars(args),
+                       use_wandb=args.use_wandb)
+    final = run_simulation(args, ds, model, task, sink)
+    sink.finish()
+    logging.info("final: %s", final)
+    return final
+
+
+if __name__ == "__main__":
+    main()

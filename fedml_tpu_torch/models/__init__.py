@@ -1,0 +1,26 @@
+"""PyTorch model zoo, the counterpart of ``fedml_tpu.models``.
+
+All modules share one calling convention: ``module(x, train=bool,
+generator=torch.Generator | None)`` with the JAX package's NHWC image
+layout at the input. ``create_model`` mirrors the reference's factory
+(fedml_experiments/distributed/fedavg/main_fedavg.py:229-266).
+"""
+
+from math import prod
+from typing import Optional, Sequence
+
+from fedml_tpu_torch.models.cnn import CNN_DropOut
+from fedml_tpu_torch.models.lr import LogisticRegression
+
+
+def create_model(model_name: str, output_dim: int = 10,
+                 input_shape: Optional[Sequence[int]] = None):
+    """Model factory with reference naming. ``input_shape`` is one
+    example's feature shape; ``lr`` needs it to size its layer."""
+    if model_name == "lr":
+        if input_shape is None:
+            raise ValueError("model 'lr' needs input_shape")
+        return LogisticRegression(prod(input_shape), output_dim)
+    if model_name == "cnn":
+        return CNN_DropOut(only_digits=(output_dim == 10))
+    raise ValueError(f"unknown model: {model_name!r}")

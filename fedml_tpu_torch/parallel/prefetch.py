@@ -1,0 +1,269 @@
+"""Async round pipeline: overlap host cohort packing + upload with device
+compute.
+
+``sample_clients(round_idx, ...)`` is a deterministic function of the round
+index, so round r+1's cohort is known while round r still runs on the
+device, and PyTorch's asynchronous kernel launches leave the host free to
+pack it. This module is the port's copy of ``fedml_tpu/parallel/prefetch.py``.
+
+:class:`RoundPrefetcher` runs a caller-supplied ``produce(key)`` (host
+pack + upload) on ONE background thread, keeping up to ``depth`` produced
+slots in flight: depth 2 is classic double buffering, and the bound is what
+caps device memory growth. Correctness contract:
+
+- **bit-identical trajectories**: the prefetcher never computes anything
+  itself; it runs the exact serial-path ``produce`` for the exact key, so
+  the tensors a round consumes are the tensors the serial path would build.
+- **graceful degradation**: ``depth<=0`` (or ``FEDML_TPU_TORCH_PREFETCH=0``)
+  means the serial path runs; a worker-thread exception is re-raised on
+  the caller at ``get``; :meth:`invalidate` discards every in-flight slot
+  (the mid-run dataset-swap contract, mirroring the drivers'
+  ``_pack_cache``).
+- **speculation misses are safe**: an out-of-sequence ``get`` simply
+  produces inline and re-aims the speculation stream at the new key's
+  successors.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+import weakref
+from typing import Any, Callable, Dict, Optional, Tuple
+
+#: env kill switch / override: ``FEDML_TPU_TORCH_PREFETCH=0`` forces the
+#: serial path everywhere regardless of config; any other integer overrides
+#: the configured depth.
+PREFETCH_ENV = "FEDML_TPU_TORCH_PREFETCH"
+
+_SHUTDOWN = object()
+
+
+def resolve_prefetch_depth(requested: int) -> int:
+    """The effective prefetch depth: ``$FEDML_TPU_TORCH_PREFETCH`` wins over
+    the configured value when set; negative values clamp to 0 (serial)."""
+    env = os.environ.get(PREFETCH_ENV)
+    if env is not None and env.strip() != "":
+        try:
+            return max(0, int(env))
+        except ValueError as exc:
+            raise ValueError(
+                f"${PREFETCH_ENV}={env!r} is not an integer") from exc
+    return max(0, int(requested))
+
+
+def _worker(ref: "weakref.ref", requests: "queue.SimpleQueue") -> None:
+    """Worker loop. Holds NO strong reference to the prefetcher between
+    requests (only the weakref + queue), so dropping the prefetcher lets
+    its ``weakref.finalize`` enqueue the shutdown sentinel and the thread
+    exits instead of leaking."""
+    while True:
+        item = requests.get()
+        if item is _SHUTDOWN:
+            return
+        key, gen, produce = item
+        t0 = time.perf_counter()
+        try:
+            payload, exc = produce(key), None
+        except BaseException as e:  # noqa: BLE001 — re-raised at get()
+            payload, exc = None, e
+        dt = time.perf_counter() - t0
+        pf = ref()
+        if pf is None:
+            return
+        with pf._cond:
+            if pf._inflight.get(key) == gen:
+                del pf._inflight[key]
+            if gen == pf._gen and key in pf._window:
+                pf._ready[key] = (payload, exc, dt)
+            else:  # invalidated or mispredicted past: drop the stale slot
+                pf._stats["invalidated"] += 1
+            pf._cond.notify_all()
+        del pf, payload, exc, item  # hold nothing while idle
+
+
+class RoundPrefetcher:
+    """Speculative producer of per-round host payloads.
+
+    ``produce(key) -> payload`` is the serial path's host work for one
+    round (pack + upload), called either on the worker thread (hit) or
+    inline on the caller (miss). ``next_key`` predicts the key sequence
+    (default ``key + 1`` for plain round indices; fused block windows use
+    ``(r0, R) -> (r0 + R, R)``). After every :meth:`get` the next
+    ``depth`` keys are scheduled, so steady state keeps ``depth`` slots
+    in flight/ready — the HBM bound.
+    """
+
+    def __init__(self, produce: Callable[[Any], Any], depth: int,
+                 next_key: Optional[Callable[[Any], Any]] = None,
+                 name: str = "round-prefetch"):
+        self.produce = produce
+        self.depth = max(0, int(depth))
+        self.next_key = next_key or (lambda k: k + 1)
+        self.name = name
+        self._cond = threading.Condition()
+        self._ready: Dict[Any, Tuple[Any, Optional[BaseException],
+                                     float]] = {}
+        self._inflight: Dict[Any, int] = {}  # key -> generation
+        self._window: set = set()  # keys speculation currently expects
+        self._gen = 0
+        self._requests: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._thread: Optional[threading.Thread] = None
+        self._closed = False
+        self._stats = {"hits": 0, "misses": 0, "invalidated": 0,
+                       "wait_s": 0.0, "hidden_s": 0.0}
+        # GC of the prefetcher (or interpreter exit) stops the worker
+        self._finalizer = weakref.finalize(self, self._requests.put,
+                                           _SHUTDOWN)
+
+    # -- caller side -------------------------------------------------------
+    def get(self, key, upcoming=None) -> Tuple[Any, float, bool]:
+        """Payload for ``key``: ``(payload, waited_s, hit)``.
+
+        Hit = the slot was produced (or is being produced) by the worker;
+        ``waited_s`` is the time this call blocked on an in-flight slot
+        (``prefetch_wait``). Miss = produced inline on this thread (the
+        serial path, charged to the producer's own timer phases). Either
+        way the speculation stream is re-aimed before any inline work, so
+        the worker packs ahead while a miss packs here.
+
+        ``upcoming`` — when the caller KNOWS its future key sequence
+        (a driver's chunked schedule, a round loop that ends at
+        ``comm_round``), pass it and exactly those keys are speculated:
+        an empty list means "nothing follows; speculate nothing" (the
+        end-of-run case — without it the worker would pack slots nothing
+        ever consumes and they would pin HBM for the API's lifetime).
+        ``None`` falls back to ``next_key`` prediction."""
+        if self.depth <= 0 or self._closed:
+            self._stats["misses"] += 1
+            return self.produce(key), 0.0, False
+        waited = 0.0
+        with self._cond:
+            gen = self._gen
+            if key not in self._ready and self._inflight.get(key) == gen:
+                t0 = time.perf_counter()
+                while (self._gen == gen and key not in self._ready
+                       and key in self._inflight):
+                    self._cond.wait()
+                waited = time.perf_counter() - t0
+                self._stats["wait_s"] += waited
+            slot = self._ready.pop(key, None)
+            self._schedule_locked(key, upcoming)
+        if slot is not None:
+            payload, exc, dt = slot
+            if exc is not None:
+                raise exc
+            self._stats["hits"] += 1
+            self._stats["hidden_s"] += max(0.0, dt - waited)
+            return payload, waited, True
+        self._stats["misses"] += 1
+        return self.produce(key), waited, False
+
+    def _schedule_locked(self, key, upcoming=None) -> None:
+        """Queue the next speculation window — ``upcoming[:depth]`` when
+        the caller supplied its real schedule, else ``depth`` successors
+        of ``key`` via ``next_key`` — and evict ready slots outside that
+        window (caller holds the lock). The eviction is what bounds
+        resident slots to ``depth`` even under persistent mispredictions —
+        orphaned speculative payloads must not pin HBM."""
+        gen = self._gen
+        if upcoming is None:
+            upcoming, k = [], key
+            for _ in range(self.depth):
+                k = self.next_key(k)
+                upcoming.append(k)
+        upcoming = list(upcoming)[:self.depth]
+        window = set(upcoming)
+        for k in upcoming:
+            if k in self._ready or k in self._inflight:
+                continue
+            self._inflight[k] = gen
+            self._requests.put((k, gen, self.produce))
+        self._window = window  # the worker drops deliveries outside it
+        for stale in [r for r in self._ready if r not in window]:
+            del self._ready[stale]
+            self._stats["invalidated"] += 1
+        if window and (self._thread is None
+                       or not self._thread.is_alive()):
+            self._thread = threading.Thread(
+                target=_worker, args=(weakref.ref(self), self._requests),
+                name=self.name, daemon=True)
+            self._thread.start()
+
+    def invalidate(self) -> None:
+        """Discard every ready and in-flight slot (mid-run dataset swap:
+        the exact contract of the drivers' ``_pack_cache``). Slots already
+        being produced are dropped on arrival via the generation check."""
+        with self._cond:
+            self._gen += 1
+            self._stats["invalidated"] += len(self._ready)
+            self._stats["invalidated"] += len(self._inflight)
+            self._ready.clear()
+            self._inflight.clear()
+            self._cond.notify_all()
+
+    def close(self) -> None:
+        """Stop the worker and drop all slots; subsequent ``get`` calls
+        produce inline (serial path)."""
+        with self._cond:
+            self._closed = True
+            self._gen += 1
+            self._ready.clear()
+            self._inflight.clear()
+            self._cond.notify_all()
+        if self._finalizer.detach() is not None:
+            self._requests.put(_SHUTDOWN)
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+
+    def stats(self) -> Dict[str, float]:
+        """Counters for evidence rows: ``hits``/``misses``/``invalidated``
+        plus ``wait_s`` (caller time blocked on in-flight slots) and
+        ``hidden_s`` (worker produce time that overlapped device compute —
+        the pack+upload latency removed from the critical path)."""
+        with self._cond:
+            return dict(self._stats)
+
+
+def bind_prefetcher(slot, dataset, build):
+    """Driver-side slot management, ONE definition for every consumer:
+    ``slot`` is ``(RoundPrefetcher, dataset-at-bind) | None``. Builds the
+    prefetcher lazily on first use; a dataset swap invalidates every
+    in-flight slot (the drivers' ``_pack_cache`` contract). Returns the
+    updated slot tuple."""
+    if slot is None:
+        return (build(), dataset)
+    if slot[1] is not dataset:
+        slot[0].invalidate()
+        return (slot[0], dataset)
+    return slot
+
+
+def consume(pf: RoundPrefetcher, key, timer, dataset, repack,
+            upcoming=None, round_bound=None):
+    """Driver-side consume protocol, ONE definition so the sim, mesh, and
+    fused-block paths cannot drift: ``get`` the slot, verify its payload
+    was packed against the CURRENT dataset (``repack(key)`` serially and
+    drop everything speculative if a produce raced a swap), and charge
+    ``prefetch_wait`` + hit/miss counters to the round timer. The payload
+    contract is ``(dataset, ...)`` — produce snapshots the dataset it
+    packed from as element 0. Every consume also samples peak host RSS
+    into the timer's ``host_rss_peak_mb`` gauge.
+
+    ``round_bound`` (integer keys only): speculate successor rounds
+    strictly below it — the round-loop clamp that keeps the last rounds
+    from packing slots nothing will consume."""
+    if round_bound is not None:
+        upcoming = [r for r in range(key + 1, key + 1 + pf.depth)
+                    if r < round_bound]
+    payload, waited, hit = pf.get(key, upcoming=upcoming)
+    if payload[0] is not dataset:
+        pf.invalidate()
+        hit = False
+        payload = repack(key)
+    timer.add("prefetch_wait", waited)
+    timer.count("prefetch_hit" if hit else "prefetch_miss")
+    timer.update_rss()
+    return payload

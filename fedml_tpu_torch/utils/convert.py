@@ -1,0 +1,70 @@
+"""Convert the JAX package's flax variables into this package's state dicts.
+
+The inverse of ``fedml_tpu/utils/torch_import.py``: flax variables, given as
+nested dicts of numpy arrays, become a ``{name: tensor}`` state dict for the
+port's model. Conv kernels go HWIO -> OIHW, dense kernels [I, O] -> [O, I],
+biases as they are. Each port model names the flax module behind each of
+its submodules (``flax_names``); every shape is checked against the model,
+and an unknown or missing key raises, so a layout drift can never load
+silently.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _to_torch_layout(kernel: np.ndarray, where: str) -> np.ndarray:
+    if kernel.ndim == 4:
+        return kernel.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if kernel.ndim == 2:
+        return kernel.T  # [I, O] -> [O, I]
+    raise ValueError(f"{where}: kernel of rank {kernel.ndim} has no known "
+                     "layout")
+
+
+def flax_to_state_dict(variables: Mapping[str, Any],
+                       model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``{"params": {flax module: {"kernel", "bias"}}}`` -> the state dict
+    of ``model`` (on the CPU, in the model's dtypes)."""
+    extra = set(variables) - {"params"}
+    if extra:
+        raise ValueError(f"unknown flax collections: {sorted(extra)}")
+    params = variables["params"]
+    target = model.state_dict()
+    names: Dict[str, str] = model.flax_names
+    unknown = set(params) - set(names.values())
+    if unknown:
+        raise ValueError(f"unknown flax modules: {sorted(unknown)}")
+    out: Dict[str, torch.Tensor] = {}
+    for tname, fname in names.items():
+        if fname not in params:
+            raise KeyError(f"flax module {fname!r} (for {tname!r}) missing")
+        leaves = params[fname]
+        bad = set(leaves) - {"kernel", "bias"}
+        if bad:
+            raise ValueError(f"{fname}: unknown leaves {sorted(bad)}")
+        for leaf, fleaf in (("weight", "kernel"), ("bias", "bias")):
+            key = f"{tname}.{leaf}"
+            if key not in target:
+                if fleaf in leaves:
+                    raise ValueError(f"{fname}/{fleaf} has no target {key!r}")
+                continue
+            if fleaf not in leaves:
+                raise KeyError(f"flax leaf {fname}/{fleaf} missing")
+            arr = np.asarray(leaves[fleaf])
+            if leaf == "weight":
+                arr = _to_torch_layout(arr, f"{fname}/{fleaf}")
+            want = tuple(target[key].shape)
+            if arr.shape != want:
+                raise ValueError(f"{fname}/{fleaf}: converted shape "
+                                 f"{arr.shape} != {key} {want}")
+            out[key] = torch.tensor(arr, dtype=target[key].dtype)
+    missing = set(target) - set(out)
+    if missing:
+        raise KeyError(f"state dict keys without a flax source: "
+                       f"{sorted(missing)}")
+    return out

@@ -1,0 +1,97 @@
+"""fedml_tpu_torch stands alone: it imports no jax, flax, optax or
+fedml_tpu module, and its CUDA default never falls back to the CPU.
+
+tests/conftest.py imports jax into this process, so the runtime check runs
+the port in a subprocess.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.data.synthetic import make_blob_federated
+from fedml_tpu_torch.experiments import main_fedavg
+from fedml_tpu_torch.models import create_model
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax)(\.|$)|^fedml_tpu(\.|$)")
+
+_CHILD = r"""
+import importlib, json, pkgutil, sys
+import fedml_tpu_torch
+for m in pkgutil.walk_packages(fedml_tpu_torch.__path__, "fedml_tpu_torch."):
+    importlib.import_module(m.name)
+from fedml_tpu_torch.experiments.main_fedavg import main
+final = main(["--dataset", "blob", "--client_num_in_total", "4",
+              "--client_num_per_round", "2", "--comm_round", "1",
+              "--frequency_of_the_test", "1", "--batch_size", "16",
+              "--device", "cpu", "--run_dir", sys.argv[1]])
+print(json.dumps({"modules": sorted(sys.modules), "round": final["round"]}))
+"""
+
+
+def test_port_round_imports_no_jax_or_reference_package(tmp_path):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)],
+                          cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["round"] == 0
+    assert "fedml_tpu_torch.ops.aggregate" in out["modules"]
+    bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
+    assert not bad, bad
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|fedml_tpu)(?:\.|\s|$)"
+    r"|import_module\(\s*['\"](jax|flax|optax|fedml_tpu)(?:\.|['\"])"
+    r"|__import__\(\s*['\"](jax|flax|optax|fedml_tpu)(?:\.|['\"])",
+    re.MULTILINE)
+
+
+def _port_sources():
+    files = sorted((ROOT / "fedml_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_static_scan_finds_no_forbidden_import():
+    files = _port_sources()
+    assert len(files) > 20
+    hits = [(str(f.relative_to(ROOT)), m.group(0).strip())
+            for f in files for m in _IMPORT.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_static_scan_catches_a_planted_import():
+    planted = "import torch\nfrom fedml_tpu.core import sampling\n"
+    assert _IMPORT.search(planted)
+    assert _IMPORT.search("    import jax.numpy as jnp\n")
+    assert not _IMPORT.search("from fedml_tpu_torch.core import sampling\n")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_fedavg_api_default_device_raises_without_cuda(no_cuda):
+    ds = make_blob_federated(client_num=4, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FedAvgAPI(ds, create_model("lr", ds.class_num, input_shape=(20,)))
+
+
+def test_main_default_device_raises_without_cuda(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main_fedavg.main(["--comm_round", "1", "--run_dir", str(tmp_path)])
+    # nothing was built or written before the refusal
+    assert not list(tmp_path.iterdir())
