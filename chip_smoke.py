@@ -3,17 +3,30 @@
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 
 1. finds the card, prints its name and power limit, builds the CUDA kernels
-   from csrc/ (printing nvcc's -Xptxas -v lines) and prints the TF32
-   settings;
+   from csrc/ (one nvcc per source, all started together, printing nvcc's
+   -Xptxas -v lines) and prints the TF32 settings;
 2. holds the aggregation kernel against its plain PyTorch version on the
    card, at the FedAvg CNN's shape [10, 1,206,590] and at edge shapes, and
    times kernel, plain version and one library call with CUDA events;
-3. drives the main path through its entry point,
+3. drives the CNN path through its entry point,
    ``fedml_tpu_torch.experiments.main_fedavg.main``: 5 FedAvg rounds of the
    62-class FEMNIST CNN on femnist_gen (10 clients a round, batch 20, lr
    0.1), checks that the kernel launched once per round and that the test
    loss fell, then times further rounds;
 4. runs one logistic-regression round on the card and on the CPU from the
+   same weights (TF32 off) and compares the parameters;
+5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
+   their plain versions on the card, at the LM path's shape [4, 2048, 4,
+   64] f32 causal and at edge shapes, and times kernels, plain versions and
+   scaled_dot_product_attention (the library yardstick only);
+6. drives the LM path through ``FedAvgAPI``: 3 FedAvg nwp rounds of the
+   full-width TransformerLM (vocab 1024, width 256, depth 4, 4 heads, S =
+   2048) with ``make_flash_attention(128, 128)`` on a token federation (4
+   clients a round, batch 4, SGD lr 0.3, evaluation at rounds 0 and 2),
+   checks every kernel's launch count against the schedule and that the
+   test loss fell, then times rounds and the centralized train step with
+   the kernels and with SDPA as ``attn_fn``;
+7. runs one small transformer round on the card and on the CPU from the
    same weights (TF32 off) and compares the parameters.
 
 Any failure raises, and the script exits non-zero without printing a
@@ -31,14 +44,20 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# one H100 SXM (NVIDIA's data sheet): HBM bytes/s and f32 (non-tensor-core)
-# FLOP/s, the two peaks that bound the aggregation kernel
+# one H100 SXM (NVIDIA's data sheet): HBM bytes/s, f32 (non-tensor-core)
+# FLOP/s and dense TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 TOL = dict(rtol=1e-5, atol=1e-6)
 HEADLINE = (10, 1_206_590)  # clients per round x CNN parameters
+LM_SHAPE = (4, 2048, 4, 64)  # B, S, H, D of the LM path's attention
+LM = dict(vocab_size=1024, width=256, depth=4, num_heads=4, max_len=2048)
+LM_LR = 0.3
+FLASH_TOL = dict(rtol=1e-4, atol=1e-4)  # f32; bf16 takes 2e-2
 
 
 def log(msg: str) -> None:
@@ -74,9 +93,27 @@ def cuda_time_ms(fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_time_eager_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` run eagerly ``iters`` times between
+    CUDA events after one warm-up call (for calls that a CUDA graph cannot
+    capture, such as autograd through a library operator; each call takes
+    milliseconds, so the host's launch time is a small part of it)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def phase_device_and_build():
     import torch
-    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.ops import aggregate, flash_attention
     from fedml_tpu_torch.ops.build import load_library
 
     if not torch.cuda.is_available():
@@ -89,12 +126,17 @@ def phase_device_and_build():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} device(s)")
     t = time.perf_counter()
-    lib = load_library("aggregate")
+    # one nvcc per source, all started together (each waits in its thread)
+    with ThreadPoolExecutor() as pool:
+        libs = list(pool.map(load_library, ["aggregate", "flash_attention"]))
     aggregate._kernel()
-    log(f"built {lib.path} in {time.perf_counter() - t:.1f}s")
-    for line in lib.build_log.splitlines():
-        if "ptxas" in line:
-            print(line, flush=True)
+    flash_attention._kernel()
+    log(f"built {[lib.path for lib in libs]} in "
+        f"{time.perf_counter() - t:.1f}s (in parallel)")
+    for lib in libs:
+        for line in lib.build_log.splitlines():
+            if "ptxas" in line:
+                print(line, flush=True)
     tf32 = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
             "float32_matmul_precision":
@@ -279,6 +321,352 @@ def phase_card_vs_cpu():
     return {"max_abs_diff": diff}
 
 
+def _flash_work(b, s, h, d, causal, elem_bytes=4):
+    """(FLOP, bytes) of each flash kernel on these inputs: FLOP of the
+    [S,S]xD products over the (query, key) pairs the causal mask leaves
+    visible (all S*S without it), bytes of each input read once and each
+    output written once."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    tensor = b * s * h * d * elem_bytes
+    rows = b * h * s * 4  # one f32 per row: lse, delta
+    return {"fwd": (2 * 2 * d * pairs, 4 * tensor + rows),
+            "dkdv": (4 * 2 * d * pairs, 6 * tensor + 2 * rows),
+            "dq": (3 * 2 * d * pairs, 5 * tensor + 2 * rows)}
+
+
+def _bounds(flops, nbytes):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, flops / F32_FLOP_PER_S),
+            "bound_ms_tf32": 1e3 * max(t_bytes, flops / TF32_FLOP_PER_S),
+            "bound_by": ("bytes" if t_bytes >= flops / F32_FLOP_PER_S
+                         else "operations")}
+
+
+def phase_flash_vs_plain():
+    import torch
+    import torch.nn.functional as F
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def inputs(b, s, h, d, dtype=torch.float32, strided=False):
+        if strided:  # q, k, v as views of one qkv projection
+            qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev)
+            q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, -1))
+        else:
+            q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                       for _ in range(3))
+        do = torch.randn(b, s, h, d, generator=gen, device=dev)
+        return [t.to(dtype) for t in (q, k, v, do)]
+
+    def rel(got, want):
+        err = (got.float() - want.float()).abs()
+        return (float(err.max()),
+                float((err / want.float().abs().clamp(min=1e-6)).max()))
+
+    # path_shape is the path's own layout: q, k, v as views of one
+    # [4, 2048, 768] qkv projection (row stride 3 * width)
+    cases = [("path_shape", LM_SHAPE, True, torch.float32, True),
+             ("not_causal", LM_SHAPE, False, torch.float32, False),
+             ("s32_below_tile", (2, 32, 4, 64), True, torch.float32, False),
+             ("d16_ragged_s48", (2, 48, 4, 16), True, torch.float32, False),
+             ("d128", (2, 256, 4, 128), True, torch.float32, False),
+             ("bf16", (2, 256, 4, 64), True, torch.bfloat16, False),
+             ("contiguous", (2, 512, 4, 64), True, torch.float32, False)]
+    checks, max_abs = [], {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+    for name, shape, causal, dtype, strided in cases:
+        q, k, v, do = inputs(*shape, dtype=dtype, strided=strided)
+        out, lse = fa.flash_fwd(q, k, v, causal)
+        want_out, want_lse = fa.fwd_reference(q, k, v, causal)
+        delta = fa.attention_delta(want_out, do)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, want_lse, delta, causal)
+        dq = fa.flash_bwd_dq(q, k, v, do, want_lse, delta, causal)
+        want_dk, want_dv = fa.bwd_dkdv_reference(q, k, v, do, want_lse,
+                                                 delta, causal)
+        want_dq = fa.bwd_dq_reference(q, k, v, do, want_lse, delta, causal)
+        torch.cuda.synchronize()
+        tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+               else FLASH_TOL)
+        errs = {}
+        for what, kern, got, want in (
+                ("out", "fwd", out, want_out), ("lse", "fwd", lse, want_lse),
+                ("dk", "dkdv", dk, want_dk), ("dv", "dkdv", dv, want_dv),
+                ("dq", "dq", dq, want_dq)):
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{name} {what}: {got.dtype} "
+                                     f"{tuple(got.shape)} vs {want.dtype} "
+                                     f"{tuple(want.shape)}")
+            if not torch.allclose(got.float(), want.float(), **tol):
+                raise AssertionError(f"{name} {what}: kernel disagrees with "
+                                     f"the plain version {rel(got, want)}")
+            errs[what] = rel(got, want)
+            max_abs[kern] = max(max_abs[kern], errs[what][0])
+        checks.append({"case": name, "shape": list(shape), "causal": causal,
+                       "dtype": str(dtype), "strided": strided,
+                       "max_abs_rel_err": errs})
+        log(f"flash kernels == plain at {name} {list(shape)} "
+            f"{str(dtype)[6:]}{' causal' if causal else ''}: "
+            + ", ".join(f"{w} {a:.2g}/{r:.2g}" for w, (a, r) in errs.items()))
+
+    # timing at the path's shape and layout (q, k, v views of one qkv
+    # projection): two input sets, kernels and plain versions captured in
+    # CUDA graphs; SDPA on the same values laid out [B, H, S, D]
+    # (contiguous), forward alone and forward + backward
+    b, s, h, d = LM_SHAPE
+    sets = []
+    for _ in range(2):
+        q, k, v, do = inputs(b, s, h, d, strided=True)
+        out, lse = fa.fwd_reference(q, k, v, True)
+        sets.append((q, k, v, do, lse, fa.attention_delta(out, do)))
+    fwd_args = [st[:3] + (True,) for st in sets]
+    bwd_args = [st[:3] + (st[3], st[4], st[5], True) for st in sets]
+    iters = 20
+    t = {"fwd": (cuda_time_ms(fa.flash_fwd, fwd_args, iters),
+                 cuda_time_ms(fa.fwd_reference, fwd_args, iters)),
+         "dkdv": (cuda_time_ms(fa.flash_bwd_dkdv, bwd_args, iters),
+                  cuda_time_ms(fa.bwd_dkdv_reference, bwd_args, iters)),
+         "dq": (cuda_time_ms(fa.flash_bwd_dq, bwd_args, iters),
+                cuda_time_ms(fa.bwd_dq_reference, bwd_args, iters))}
+    q, k, v, do = (x.transpose(1, 2).contiguous() for x in sets[0][:4])
+    sdpa_fwd = cuda_time_ms(
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+        [(q, k, v)], iters)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, grad_outputs=do)
+    sdpa_both = cuda_time_eager_ms(sdpa_fwd_bwd, iters)
+    work = _flash_work(b, s, h, d, True)
+    timing = {}
+    for kern, (ms, plain_ms) in t.items():
+        flops, nbytes = work[kern]
+        timing[kern] = {"ms": ms, "plain_ms": plain_ms,
+                        "library_ms": sdpa_fwd if kern == "fwd" else sdpa_both,
+                        "flop": flops, "bytes": nbytes,
+                        "tflops": flops / ms / 1e9,
+                        **_bounds(flops, nbytes)}
+        log(f"flash {kern} {list(LM_SHAPE)} f32 causal: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, SDPA {timing[kern]['library_ms']:.4f}"
+            f" ms ({'fwd' if kern == 'fwd' else 'fwd+bwd'}), bound "
+            f"{timing[kern]['bound_ms']:.4f} ms f32 / "
+            f"{timing[kern]['bound_ms_tf32']:.4f} ms TF32 "
+            f"({flops / 1e9:.2f} GFLOP) -> {timing[kern]['tflops']:.1f} "
+            f"TFLOP/s")
+    return {"checks": checks, "max_abs_err": max_abs, "timing": timing}
+
+
+def _lm_launches(api, rounds, evals):
+    """Launches of each flash kernel that the schedule implies: every real
+    SGD step runs each kernel once per layer; every evaluation runs the
+    forward once per layer per eval batch of the train and test unions."""
+    from fedml_tpu_torch.core.sampling import sample_clients
+    cfg = api.config
+    bsz = cfg.train.batch_size
+    depth = len(api.module.blocks)
+    steps = sum(cfg.train.epochs
+                * -(-api.dataset.train_data_local_num_dict[int(c)] // bsz)
+                for r in range(rounds)
+                for c in sample_clients(r, api.dataset.client_num,
+                                        cfg.client_num_per_round))
+    eval_batches = sum(-(-len(x) // 512) for x in (
+        api.dataset.train_data_global[0], api.dataset.test_data_global[0]))
+    fwd = depth * (steps + evals * eval_batches)
+    return {"fwd": fwd, "dkdv": depth * steps, "dq": depth * steps,
+            "steps": steps}
+
+
+def phase_lm_path():
+    import torch
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.synthetic import make_token_federated
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    t = time.perf_counter()
+    ds = make_token_federated(client_num=8, vocab_size=1024, seq_len=2048,
+                              sequences_per_client=8, seed=0)
+    log(f"token federation built in {time.perf_counter() - t:.1f}s")
+    rounds, per_round = 3, 4
+    api = FedAvgAPI(ds, TransformerLM(**LM, attn_fn=fa.make_flash_attention(
+        128, 128)), task="nwp", device="cuda", config=FedAvgConfig(
+            comm_round=rounds, client_num_per_round=per_round,
+            frequency_of_the_test=2,
+            train=TrainConfig(epochs=1, batch_size=4, lr=LM_LR)))
+    kernels = (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq,
+               aggregate.weighted_mean_flat)
+    for fn in kernels:
+        fn.launches = 0
+    t = time.perf_counter()
+    api.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(zip(("fwd", "dkdv", "dq", "wmean"),
+                        (fn.launches for fn in kernels)))
+
+    want = _lm_launches(api, rounds, evals=2)
+    for kern in ("fwd", "dkdv", "dq"):
+        if launches[kern] != want[kern]:
+            raise AssertionError(f"flash {kern} launched {launches[kern]} "
+                                 f"times, the schedule implies {want[kern]}")
+    if launches["wmean"] != rounds:
+        raise AssertionError(f"aggregation kernel launched "
+                             f"{launches['wmean']} times in {rounds} rounds")
+    recs = api.history
+    if [r["round"] for r in recs] != [0, 2]:
+        raise AssertionError(f"eval rounds {[r['round'] for r in recs]}")
+    for r in recs:
+        for k in ("train_loss", "test_loss", "train_acc", "test_acc",
+                  "train_loss_local"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"round {r['round']}: {k}={r[k]}")
+    if not recs[-1]["test_loss"] < recs[0]["test_loss"]:
+        raise AssertionError(f"LM test loss did not fall: "
+                             f"{recs[0]['test_loss']} -> "
+                             f"{recs[-1]['test_loss']}")
+    name = torch.cuda.get_device_name(0)
+    log(f"LM path: {rounds} rounds, {want['steps']} SGD steps, launches "
+        f"{launches} (schedule {want}), test loss {recs[0]['test_loss']:.4f}"
+        f" -> {recs[-1]['test_loss']:.4f} (wall {wall:.1f}s with 2 evals)")
+
+    # one full evaluation batch (512 rows, make_eval's batch) at S = 2048:
+    # the train union tiled to 512 sequences; its peak device memory
+    x = torch.from_numpy(ds.train_data_global[0]).to("cuda").repeat(8, 1)
+    y = torch.from_numpy(ds.train_data_global[1]).to("cuda").repeat(8, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    stats = api._eval_fn(api.variables, x, y, torch.ones(len(x),
+                                                         device="cuda"))
+    torch.cuda.synchronize()
+    eval512 = {"rows": len(x), "s": time.perf_counter() - t,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "peak_above_inputs_gib":
+                   (torch.cuda.max_memory_allocated() - base) / 2**30}
+    if not math.isfinite(float(stats["loss_sum"])):
+        raise AssertionError("eval batch of 512: loss not finite")
+    log(f"eval batch [{len(x)}, {x.shape[1]}]: {eval512['s']:.2f}s, peak "
+        f"{eval512['peak_gib']:.2f} GiB allocated "
+        f"({eval512['peak_above_inputs_gib']:.2f} GiB above what was live)")
+    del x, y, stats
+
+    # rounds/s and training tokens/s on the same API, further rounds
+    timed = 3
+    api.run_round(rounds)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for r in range(rounds + 1, rounds + 1 + timed):
+        api.run_round(r)
+    torch.cuda.synchronize()
+    rps = timed / (time.perf_counter() - t)
+    seq_len = ds.train_data_global[0].shape[1]
+    tokens_per_round = sum(
+        ds.train_data_local_num_dict[int(c)] * seq_len
+        for r in range(rounds + 1, rounds + 1 + timed)
+        for c in sample_clients(r, ds.client_num, per_round)) / timed
+    log(f"LM rounds: {rps:.3f} rounds/s, {rps * tokens_per_round:.0f} "
+        f"training tokens/s on {name} (4 clients x 8 sequences x 2048)")
+
+    # the centralized train step at the bench's shape: [4, 2048] tokens,
+    # mean next-token CE, SGD lr 1e-3; the kernels, then SDPA as attn_fn
+    tokens = torch.from_numpy(ds.train_data_global[0][:4]).to("cuda")
+
+    def sdpa_attn(q, k, v, causal=True):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal).transpose(1, 2)
+
+    step_tps = {}
+    for label, attn in (("flash_kernels", fa.make_flash_attention(128, 128)),
+                        ("sdpa", sdpa_attn)):
+        model = TransformerLM(**LM, attn_fn=attn).to("cuda")
+        params = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+
+        def step(params):
+            leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+            logits = functional_call(model, leaves, (tokens,))
+            loss = F.cross_entropy(logits[:, :-1].reshape(-1, LM["vocab_size"]),
+                                   tokens[:, 1:].reshape(-1).long())
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            with torch.no_grad():
+                return {k: v.detach() - 1e-3 * g
+                        for (k, v), g in zip(leaves.items(), grads)}
+        for _ in range(2):
+            params = step(params)
+        torch.cuda.synchronize()
+        n = 10
+        t = time.perf_counter()
+        for _ in range(n):
+            params = step(params)
+        torch.cuda.synchronize()
+        step_tps[label] = n * tokens.numel() / (time.perf_counter() - t)
+    log(f"centralized step [4, 2048]: {step_tps['flash_kernels']:.0f} "
+        f"tokens/s with the kernels, {step_tps['sdpa']:.0f} with SDPA, on "
+        f"{name}")
+    return {"launches": launches, "schedule": want, "evals": recs,
+            "wall_s": wall, "rounds_per_s": rps, "eval_512": eval512,
+            "train_tokens_per_s": rps * tokens_per_round,
+            "centralized_step_tokens_per_s": step_tps}
+
+
+def phase_lm_card_vs_cpu():
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.data.synthetic import make_token_federated
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launched = fa.flash_bwd_dq.launches
+    try:
+        ds = make_token_federated(client_num=4, vocab_size=64, seq_len=128,
+                                  sequences_per_client=8, seed=1)
+        cfg = FedAvgConfig(comm_round=1, client_num_per_round=4,
+                           prefetch_depth=0,
+                           train=TrainConfig(epochs=1, batch_size=4, lr=0.3,
+                                             shuffle=False))
+        apis = [FedAvgAPI(ds, TransformerLM(
+                    vocab_size=64, width=64, depth=2, num_heads=2,
+                    max_len=128, attn_fn=fa.make_flash_attention(128, 128)),
+                    task="nwp", config=cfg, device=d)
+                for d in ("cuda", "cpu")]
+        for k in apis[1].variables:
+            if not torch.equal(apis[0].variables[k].cpu(),
+                               apis[1].variables[k]):
+                raise AssertionError(f"initial {k} differs across devices")
+        for api in apis:
+            api.run_round(0)
+        diff = max(float((apis[0].variables[k].cpu()
+                          - apis[1].variables[k]).abs().max())
+                   for k in apis[1].variables)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    if fa.flash_bwd_dq.launches == launched:
+        raise AssertionError("the card's transformer round ran no kernel")
+    if not diff <= 1e-4:
+        raise AssertionError(f"transformer round card vs CPU: max abs diff "
+                             f"{diff}")
+    log(f"transformer round, card vs CPU: max abs param diff {diff:.3g} "
+        "(atol 1e-4)")
+    return {"max_abs_diff": diff}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -287,15 +675,33 @@ def main() -> None:
     record["kernel"] = phase_kernel_vs_plain()
     record["main_path"] = phase_main_path()
     record["card_vs_cpu"] = phase_card_vs_cpu()
+    record["flash"] = phase_flash_vs_plain()
+    record["lm_path"] = phase_lm_path()
+    record["lm_card_vs_cpu"] = phase_lm_card_vs_cpu()
     k = record["kernel"]
-    kernels = {"kernels": [{
+    kernels = [{
         "name": "wmean_f32", "route": "cuda",
         "source": "fedml_tpu_torch/csrc/aggregate.cu",
         "replaces": "fedml_tpu/ops/aggregate.py:27",
         "launches": record["main_path"]["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]}
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]
+    for kern, name, line in (("fwd", "flash_fwd", 46),
+                             ("dkdv", "flash_bwd_dkdv", 176),
+                             ("dq", "flash_bwd_dq", 215)):
+        t = record["flash"]["timing"][kern]
+        kernels.append({
+            "name": f"{name}_f32", "route": "cuda",
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
+            "launches": record["lm_path"]["launches"][kern],
+            "max_abs_err": record["flash"]["max_abs_err"][kern],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "bound_ms_tf32": t["bound_ms_tf32"]})
+    kernels = {"kernels": kernels}
     with open(os.path.join(ROOT, "runs", "chip_smoke", "record.json"),
               "w") as f:
         json.dump({**record, **kernels}, f, indent=1)

@@ -16,10 +16,12 @@ _TRUNC_STD = 0.87962566103423978
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-initialize every Linear and Conv layer the way flax's defaults
-    do: kernel ``lecun_normal`` (truncated normal, variance 1/fan_in), bias
-    zeros, drawn from ``generator``. The distributions match the JAX
-    package's; the numbers do not (different generators)."""
+    """Re-initialize every Linear, Conv and Embedding layer the way flax's
+    defaults do: kernel ``lecun_normal`` (truncated normal, variance
+    1/fan_in), bias zeros, embedding a plain normal of variance 1/width,
+    drawn from ``generator``; LayerNorms keep torch's ones and zeros, which
+    are flax's too. The distributions match the JAX package's; the numbers
+    do not (different generators)."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -28,6 +30,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
                                   generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.embedding_dim),
+                            generator=generator)
     return module
 
 

@@ -3,7 +3,7 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher (raw
 pointers, sizes, the stream; returns ``cudaGetLastError()``), so a build is
-one ``nvcc`` call of a few seconds with no PyTorch headers. Libraries land
+one ``nvcc`` call with no PyTorch headers. Libraries land
 in ``fedml_tpu_torch/_build/`` (git-ignored), named by a hash of the source
 and the flags, so an edited source is rebuilt and a stale library is never
 loaded.

@@ -6,9 +6,9 @@ clients by plain addition. Every example row carries a 0/1 ``mask`` weight
 (padding rows are 0); the per-batch training loss is ``loss_sum / count``,
 torch's ``reduction='mean'`` over the real examples.
 
-This slice ports the classification head (``fedml_tpu/trainer/tasks.py``
-``classification_head``); the sequence and segmentation heads come with the
-models that need them.
+The port has the classification and next-word-prediction heads of
+``fedml_tpu/trainer/tasks.py``; the tag-prediction and segmentation heads
+come with the models that need them.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import torch.nn.functional as F
 
 Stats = Dict[str, torch.Tensor]
 TaskHead = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Stats]
+
+PAD_TOKEN = 0  # sequence pad id (LEAF/TFF convention: 0-padded batches)
 
 
 def classification_head(logits: torch.Tensor, targets: torch.Tensor,
@@ -34,6 +36,25 @@ def classification_head(logits: torch.Tensor, targets: torch.Tensor,
     }
 
 
+def nwp_head(logits: torch.Tensor, targets: torch.Tensor,
+             mask: torch.Tensor) -> Stats:
+    """Next-word/char prediction: per-token CE over [B, T, V] logits.
+
+    The accounting unit is the *token*: pad tokens (``PAD_TOKEN``) and
+    padded example rows are excluded from the sums."""
+    per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              targets.reshape(-1).long(),
+                              reduction="none").view(targets.shape)
+    tok_mask = (targets != PAD_TOKEN).to(torch.float32) * mask[:, None]
+    correct = (logits.argmax(-1) == targets).to(torch.float32)
+    return {
+        "loss_sum": (per_tok * tok_mask).sum(),
+        "count": tok_mask.sum(),
+        "correct_sum": (correct * tok_mask).sum(),
+    }
+
+
 TASK_HEADS: Dict[str, TaskHead] = {
     "classification": classification_head,
+    "nwp": nwp_head,
 }

@@ -2,11 +2,17 @@
 
 The inverse of ``fedml_tpu/utils/torch_import.py``: flax variables, given as
 nested dicts of numpy arrays, become a ``{name: tensor}`` state dict for the
-port's model. Conv kernels go HWIO -> OIHW, dense kernels [I, O] -> [O, I],
-biases as they are. Each port model names the flax module behind each of
-its submodules (``flax_names``); every shape is checked against the model,
-and an unknown or missing key raises, so a layout drift can never load
-silently.
+port's model. Each port model names the flax module behind each of its
+submodules (``flax_names``; nested flax modules as ``"Outer_0/Inner_1"``
+paths). Leaves by layer type:
+
+- Linear and Conv2d: ``kernel`` -> ``weight`` (dense [I, O] -> [O, I], conv
+  HWIO -> OIHW) and ``bias`` -> ``bias`` (absent for a layer without one);
+- LayerNorm: ``scale`` -> ``weight``, ``bias`` -> ``bias``;
+- Embedding: ``embedding`` -> ``weight``, the layout unchanged.
+
+Every shape is checked against the model, and an unknown or missing key
+raises, so a layout drift can never load silently.
 """
 
 from __future__ import annotations
@@ -15,6 +21,14 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+# flax leaf -> torch leaf, per torch layer type
+_LEAVES = (
+    ((nn.Linear, nn.Conv2d), {"kernel": "weight", "bias": "bias"}),
+    (nn.LayerNorm, {"scale": "weight", "bias": "bias"}),
+    (nn.Embedding, {"embedding": "weight"}),
+)
 
 
 def _to_torch_layout(kernel: np.ndarray, where: str) -> np.ndarray:
@@ -26,14 +40,35 @@ def _to_torch_layout(kernel: np.ndarray, where: str) -> np.ndarray:
                      "layout")
 
 
+def _flax_modules(tree: Mapping[str, Any], prefix: str = "") -> Dict:
+    """``{module path: {leaf: array}}`` for every dict of the tree that
+    holds leaves."""
+    out, leaves = {}, {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flax_modules(v, f"{prefix}{k}/"))
+        else:
+            leaves[k] = v
+    if leaves:
+        out[prefix.rstrip("/")] = leaves
+    return out
+
+
+def _leaf_map(module: nn.Module, tname: str) -> Dict[str, str]:
+    for types, leaves in _LEAVES:
+        if isinstance(module, types):
+            return leaves
+    raise ValueError(f"{tname}: no flax layout for {type(module).__name__}")
+
+
 def flax_to_state_dict(variables: Mapping[str, Any],
                        model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """``{"params": {flax module: {"kernel", "bias"}}}`` -> the state dict
-    of ``model`` (on the CPU, in the model's dtypes)."""
+    """``{"params": {flax module path: leaves}}`` -> the state dict of
+    ``model`` (on the CPU, in the model's dtypes)."""
     extra = set(variables) - {"params"}
     if extra:
         raise ValueError(f"unknown flax collections: {sorted(extra)}")
-    params = variables["params"]
+    params = _flax_modules(variables["params"])
     target = model.state_dict()
     names: Dict[str, str] = model.flax_names
     unknown = set(params) - set(names.values())
@@ -44,10 +79,11 @@ def flax_to_state_dict(variables: Mapping[str, Any],
         if fname not in params:
             raise KeyError(f"flax module {fname!r} (for {tname!r}) missing")
         leaves = params[fname]
-        bad = set(leaves) - {"kernel", "bias"}
+        leaf_map = _leaf_map(model.get_submodule(tname), tname)
+        bad = set(leaves) - set(leaf_map)
         if bad:
             raise ValueError(f"{fname}: unknown leaves {sorted(bad)}")
-        for leaf, fleaf in (("weight", "kernel"), ("bias", "bias")):
+        for fleaf, leaf in leaf_map.items():
             key = f"{tname}.{leaf}"
             if key not in target:
                 if fleaf in leaves:
@@ -56,7 +92,7 @@ def flax_to_state_dict(variables: Mapping[str, Any],
             if fleaf not in leaves:
                 raise KeyError(f"flax leaf {fname}/{fleaf} missing")
             arr = np.asarray(leaves[fleaf])
-            if leaf == "weight":
+            if fleaf == "kernel":
                 arr = _to_torch_layout(arr, f"{fname}/{fleaf}")
             want = tuple(target[key].shape)
             if arr.shape != want:

@@ -33,7 +33,23 @@ final = main(["--dataset", "blob", "--client_num_in_total", "4",
               "--client_num_per_round", "2", "--comm_round", "1",
               "--frequency_of_the_test", "1", "--batch_size", "16",
               "--device", "cpu", "--run_dir", sys.argv[1]])
-print(json.dumps({"modules": sorted(sys.modules), "round": final["round"]}))
+# one tiny transformer nwp round through the flash attention's CPU path
+from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+from fedml_tpu_torch.data.synthetic import make_token_federated
+from fedml_tpu_torch.models import create_model
+from fedml_tpu_torch.ops.flash_attention import make_flash_attention
+from fedml_tpu_torch.trainer.functional import TrainConfig
+ds = make_token_federated(client_num=2, vocab_size=16, seq_len=16,
+                          sequences_per_client=4)
+lm = create_model("transformer", ds.class_num, width=16, depth=1,
+                  num_heads=1, max_len=16,
+                  attn_fn=make_flash_attention(16, 16))
+api = FedAvgAPI(ds, lm, task="nwp", device="cpu", config=FedAvgConfig(
+    comm_round=1, client_num_per_round=2,
+    train=TrainConfig(batch_size=2, lr=0.1)))
+_, stats = api.run_round(0)
+print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
+                  "lm_tokens": float(stats["count"])}))
 """
 
 
@@ -47,7 +63,9 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["round"] == 0
-    assert "fedml_tpu_torch.ops.aggregate" in out["modules"]
+    assert out["lm_tokens"] > 0
+    for m in ("ops.aggregate", "ops.flash_attention", "models.transformer"):
+        assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
     assert not bad, bad
 
