@@ -27,7 +27,23 @@
    test loss fell, then times rounds and the centralized train step with
    the kernels and with SDPA as ``attn_fn``;
 7. runs one small transformer round on the card and on the CPU from the
-   same weights (TF32 off) and compares the parameters.
+   same weights (TF32 off) and compares the parameters;
+8. holds the int8 quantize and dequantize kernels (the dequantize also
+   with a minuend: top-k's error-feedback residual) against their plain
+   versions on the card, bit for bit, at the CNN's D = 1,206,590, at the
+   top-k survivors' k = 60,330 and at edge shapes (D in {1, 511, 512, 513,
+   2570}, an all-zero block, values spanning 1e-30..1e30, random bits with
+   the top bit set, NaN and infinite blocks, misaligned views for the
+   scalar paths), and times kernels and plain versions;
+9. drives the cross-silo path through ``main_fedavg.main --backend
+   inproc``: 2 rounds of ``--compression none``, then 5 rounds each of
+   ``delta_int8`` and ``topk_ef_int8:0.05`` of the FEMNIST CNN over 10
+   silos, checks both kernels' launch counts against the schedule, that the
+   test loss fell, and the uplink frames' array bytes, and prints rounds/s,
+   the codec and fold times and the wire bytes a round against ``none``;
+10. runs one cross-silo LR round on the card and on the CPU from the same
+   weights (TF32 off) under ``none`` and ``topk_ef`` (no random bits) and
+   compares the parameters.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -58,6 +74,7 @@ LM_SHAPE = (4, 2048, 4, 64)  # B, S, H, D of the LM path's attention
 LM = dict(vocab_size=1024, width=256, depth=4, num_heads=4, max_len=2048)
 LM_LR = 0.3
 FLASH_TOL = dict(rtol=1e-4, atol=1e-4)  # f32; bf16 takes 2e-2
+SILO_K = 60_330  # top-k survivors of the CNN's delta at keep-fraction 0.05
 
 
 def log(msg: str) -> None:
@@ -113,7 +130,7 @@ def cuda_time_eager_ms(fn, iters: int) -> float:
 
 def phase_device_and_build():
     import torch
-    from fedml_tpu_torch.ops import aggregate, flash_attention
+    from fedml_tpu_torch.ops import aggregate, flash_attention, quantize
     from fedml_tpu_torch.ops.build import load_library
 
     if not torch.cuda.is_available():
@@ -128,9 +145,11 @@ def phase_device_and_build():
     t = time.perf_counter()
     # one nvcc per source, all started together (each waits in its thread)
     with ThreadPoolExecutor() as pool:
-        libs = list(pool.map(load_library, ["aggregate", "flash_attention"]))
+        libs = list(pool.map(load_library, ["aggregate", "flash_attention",
+                                            "quantize"]))
     aggregate._kernel()
     flash_attention._kernel()
+    quantize._kernel()
     log(f"built {[lib.path for lib in libs]} in "
         f"{time.perf_counter() - t:.1f}s (in parallel)")
     for lib in libs:
@@ -667,6 +686,301 @@ def phase_lm_card_vs_cpu():
     return {"max_abs_diff": diff}
 
 
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit; for floats, NaN at the same places (the card's
+    NaN and the CPU's may differ in payload) and equal bits elsewhere."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = a[~nan].view(torch.int32), b[~nan].view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _max_abs(a, b) -> float:
+    """Largest |a - b| where neither is NaN (0 for no such entry)."""
+    import torch
+    a, b = a.float(), b.float()
+    keep = ~(torch.isnan(a) | torch.isnan(b))
+    return float((a[keep] - b[keep]).abs().max()) if keep.any() else 0.0
+
+
+def _quant_work(d):
+    """Bytes each kernel must move for a ``d``-vector (each input read
+    once, each output written once) and its f32 operations (about 10 a
+    value to quantize: abs, max, divide, shift, convert, scale, floor,
+    subtract, compare, add and the clip; one to dequantize, two with a
+    minuend, the residual of top-k's error feedback)."""
+    blocks = -(-d // 512)
+    return {"quant": (10 * d, 4 * d + 4 * d + d + 4 * blocks),
+            "dequant": (d, d + 4 * blocks + 4 * d),
+            "dequant_sub": (2 * d, d + 4 * blocks + 4 * d + 4 * d)}
+
+
+def phase_quant_vs_plain():
+    import torch
+    from fedml_tpu_torch.ops import quantize as tq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    d_cnn = HEADLINE[1]
+
+    def inputs(d, kind="normal", offset=0):
+        x = torch.randn(d + offset, generator=gen, device=dev)[offset:]
+        if kind == "wide":  # magnitudes spanning 1e-30..1e30
+            x = x.sign() * 10.0 ** (torch.rand(d, generator=gen, device=dev)
+                                    * 60 - 30)
+        if d >= 1024:
+            x[512:1024] = 0.0  # an all-zero block
+        bits = tq.random_bits(d + offset, gen)[offset:]
+        if kind == "top_bit":
+            bits = bits | torch.tensor(-2**31, dtype=torch.int32, device=dev)
+        if kind == "nan_inf":  # NaN in block 0, +-inf in blocks 2 and 3
+            x[3], x[1100], x[1700] = math.nan, math.inf, -math.inf
+        return x, bits
+
+    cases = [("cnn_delta", d_cnn, "normal", 0),
+             ("topk_survivors", SILO_K, "normal", 0),
+             ("wide_range", d_cnn, "wide", 0),
+             ("top_bit_set", 70_000, "top_bit", 0),
+             ("nan_inf", 2570, "nan_inf", 0),
+             ("scalar_path", d_cnn, "normal", 1)]
+    cases += [(f"d{d}", d, "normal", 0) for d in (1, 511, 512, 513, 2570)]
+    checks, max_abs = [], {"quant": 0.0, "dequant": 0.0}
+    for name, d, kind, offset in cases:
+        x, bits = inputs(d, kind, offset)
+        q, s = tq.quantize_int8(x, bits)
+        want_q, want_s = tq.quantize_int8_reference(x, bits)
+        q_in = torch.empty(d + offset, dtype=torch.int8, device=dev)[offset:]
+        q_in.copy_(want_q)
+        out = tq.dequantize_int8(q_in, want_s, d)
+        want_out = tq.dequantize_int8_reference(want_q, want_s)
+        # the error-feedback residual of the kept values: x - q * scale
+        res = tq.dequantize_int8(q_in, want_s, d, subtract_from=x)
+        want_res = tq.dequantize_int8_reference(want_q, want_s, x)
+        vec = tq.takes_vec_paths(x, bits, q_in, out)
+        vec_res = tq.takes_vec_paths(x, bits, q_in, res, x)[1]
+        torch.cuda.synchronize()
+        ok = {"q": _same_bits(q, want_q), "scales": _same_bits(s, want_s),
+              "out": _same_bits(out, want_out),
+              "residual": _same_bits(res, want_res)}
+        if not all(ok.values()):
+            raise AssertionError(f"{name} D={d}: kernel differs from the "
+                                 f"plain version in {ok}")
+        if vec != (offset == 0, offset == 0) or vec_res != (offset == 0):
+            raise AssertionError(f"{name}: 16-byte paths {vec} {vec_res}")
+        if kind == "nan_inf" and not (
+                torch.isnan(s[0]) and torch.isinf(s[2:4]).all()
+                and (q[:512] == 0).all() and torch.isnan(out[:512]).all()
+                and torch.isnan(out[1024:2048]).all()):
+            raise AssertionError("a NaN or inf block did not dequantize "
+                                 "to NaN")
+        max_abs["quant"] = max(max_abs["quant"], _max_abs(q, want_q))
+        max_abs["dequant"] = max(max_abs["dequant"], _max_abs(out, want_out),
+                                 _max_abs(res, want_res))
+        checks.append({"case": name, "d": d, "vec": list(vec) + [vec_res],
+                       "bit_exact": True})
+        log(f"quantize/dequantize == plain, bit for bit, at {name} D={d}"
+            f"{' (scalar paths)' if offset else ''}")
+
+    # timing at the path's two shapes: 6 input sets at D (65 MB, beyond
+    # the 50 MB L2), 20 at k; kernels and plain versions in CUDA graphs
+    timing = {}
+    for label, d, sets in (("cnn_delta", d_cnn, 6),
+                           ("topk_survivors", SILO_K, 20)):
+        qargs = [inputs(d) for _ in range(sets)]
+        dargs = [tq.quantize_int8_reference(x, b) + (d,) for x, b in qargs]
+        sargs = [a + (x,) for a, (x, _) in zip(dargs, qargs)]
+        iters = 200
+        t = {"quant": (cuda_time_ms(tq.quantize_int8, qargs, iters),
+                       cuda_time_ms(tq.quantize_int8_reference, qargs,
+                                    iters)),
+             "dequant": (cuda_time_ms(tq.dequantize_int8, dargs, iters),
+                         cuda_time_ms(lambda q, s, d:
+                                      tq.dequantize_int8_reference(q, s),
+                                      dargs, iters)),
+             "dequant_sub": (cuda_time_ms(tq.dequantize_int8, sargs, iters),
+                             cuda_time_ms(lambda q, s, d, x:
+                                          tq.dequantize_int8_reference(
+                                              q, s, x), sargs, iters))}
+        work = _quant_work(d)
+        timing[label] = {}
+        for kern, (ms, plain_ms) in t.items():
+            ops, nbytes = work[kern]
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = ops / F32_FLOP_PER_S
+            timing[label][kern] = {
+                "d": d, "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "gb_per_s": nbytes / ms / 1e6}
+            log(f"{kern} D={d}: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
+                f"ms, bound {1e3 * max(t_bytes, t_ops):.5f} ms "
+                f"({nbytes / 1e6:.2f} MB) -> {nbytes / ms / 1e6:.0f} GB/s")
+    return {"checks": checks, "max_abs_err": max_abs, "timing": timing}
+
+
+def _silo_launches(rounds, silos, policy):
+    """Launches the schedule implies: one quantize per reply and per
+    compressed broadcast (rounds 1..R-1); one dequantize for the server's
+    decode of each reply, and per compressed broadcast one for the
+    server's mirror and one for each silo's apply. Top-k + int8 adds one
+    dequantize per encode (each reply and each compressed broadcast), the
+    error-feedback residual of the kept values (ops/sparsify.py). At 5
+    rounds and 10 silos: 54 / 94, and 54 / 148 under top-k."""
+    if policy == "none":
+        return {"quant": 0, "dequant": 0}
+    encodes = rounds * silos + rounds - 1
+    dequant = rounds * silos + (rounds - 1) * (silos + 1)
+    if policy.startswith("topk_ef_int8"):
+        dequant += encodes
+    return {"quant": encodes, "dequant": dequant}
+
+
+def phase_cross_silo_path():
+    import torch
+    from fedml_tpu_torch.comm.compression import compress_for_policy
+    from fedml_tpu_torch.comm.policy import parse_policy
+    from fedml_tpu_torch.experiments import main_fedavg
+    from fedml_tpu_torch.ops import quantize as tq
+    from fedml_tpu_torch.utils.metrics import read_metrics
+
+    silos = HEADLINE[0]
+    flags = ["--backend", "inproc", "--dataset", "femnist_gen",
+             "--client_num_in_total", "200", "--client_num_per_round",
+             str(silos), "--batch_size", "20", "--epochs", "1", "--lr",
+             "0.1", "--device", "cuda"]
+    runs, launches = {}, {"quant": 0, "dequant": 0}
+    tq.quantize_int8.launches = 0
+    tq.dequantize_int8.launches = 0
+    for policy, rounds in (("none", 2), ("delta_int8", 5),
+                           ("topk_ef_int8:0.05", 5)):
+        run_dir = os.path.join(ROOT, "runs", "chip_smoke",
+                               "silo_" + policy.replace(":", "_"))
+        shutil.rmtree(run_dir, ignore_errors=True)
+        before = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+        t = time.perf_counter()
+        main_fedavg.main(flags + ["--comm_round", str(rounds),
+                                  "--compression", policy,
+                                  "--run_dir", run_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {"quant": tq.quantize_int8.launches - before[0],
+               "dequant": tq.dequantize_int8.launches - before[1]}
+        want = _silo_launches(rounds, silos, policy)
+        if got != want:
+            raise AssertionError(f"{policy}: launches {got}, the schedule "
+                                 f"implies {want}")
+        recs = read_metrics(run_dir)
+        hist = [r for r in recs if "round" in r]
+        summary = recs[-1]
+        if [r["round"] for r in hist] != list(range(rounds)):
+            raise AssertionError(f"{policy}: rounds {hist}")
+        for r in hist:
+            if not math.isfinite(r["test_loss"]):
+                raise AssertionError(f"{policy}: {r}")
+        if rounds == 5 and not hist[4]["test_loss"] < hist[0]["test_loss"]:
+            raise AssertionError(f"{policy}: test loss did not fall "
+                                 f"{hist[0]['test_loss']} -> "
+                                 f"{hist[4]['test_loss']}")
+        steady = summary["round_duration_s"][1:]
+        runs[policy] = {
+            "launches": got, "wall_s": wall, "history": hist,
+            "rounds_per_s": len(steady) / sum(steady),
+            "round_duration_s": summary["round_duration_s"],
+            "bytes_up_per_round": summary["comm_bytes_up_per_round"],
+            "bytes_down_per_round": summary["comm_bytes_down_per_round"],
+            "codec_encode_ms": summary.get("gauge_codec_encode_ms"),
+            "agg_fold_ms": summary["gauge_agg_fold_ms"],
+            "phase_ms_per_round": {
+                k[len("phase_"):-len("_ms_per_round")]: v
+                for k, v in summary.items()
+                if k.startswith("phase_") and k.endswith("_per_round")}}
+        launches = {k: launches[k] + got[k] for k in launches}
+    base = runs["none"]
+    for policy, r in runs.items():
+        r["up_ratio_to_none"] = base["bytes_up_per_round"] / \
+            r["bytes_up_per_round"]
+        r["down_ratio_to_none"] = base["bytes_down_per_round"] / \
+            r["bytes_down_per_round"]
+        log(f"cross-silo {policy}: launches {r['launches']}, test loss "
+            f"{r['history'][0]['test_loss']:.4f} -> "
+            f"{r['history'][-1]['test_loss']:.4f}, "
+            f"{r['rounds_per_s']:.3f} rounds/s after round 0, wire a round "
+            f"up {r['bytes_up_per_round']:.0f} B "
+            f"({r['up_ratio_to_none']:.2f}x less than none), down "
+            f"{r['bytes_down_per_round']:.0f} B "
+            f"({r['down_ratio_to_none']:.2f}x), codec_encode_ms "
+            f"{r['codec_encode_ms']}, agg_fold_ms {r['agg_fold_ms']:.3f}, "
+            f"phase ms a round {r['phase_ms_per_round']}")
+
+    # one reply's frame arrays at full width: the CNN's state dict and a
+    # perturbed copy, encoded as a silo encodes them
+    from fedml_tpu_torch.models import CNN_DropOut
+    model = CNN_DropOut(only_digits=False).to("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    base_sd = {k: v.detach() for k, v in model.state_dict().items()}
+    new_sd = {k: v + 1e-3 * torch.randn(v.shape, generator=gen,
+                                        device="cuda")
+              for k, v in base_sd.items()}
+    frames = {}
+    for policy, want in (("delta_int8", 1_216_018),
+                         ("topk_ef_int8:0.05", 302_122)):
+        payload, _ = compress_for_policy(new_sd, base_sd, None, gen,
+                                         parse_policy(policy))
+        nbytes = sum(payload[k].nbytes for k in ("i", "q", "s")
+                     if k in payload)
+        if nbytes != want:
+            raise AssertionError(f"{policy}: reply arrays {nbytes} B, "
+                                 f"expected {want}")
+        frames[policy] = nbytes
+        log(f"{policy}: one reply's arrays {nbytes} B "
+            f"({4 * HEADLINE[1] / nbytes:.2f}x less than f32)")
+    return {"runs": runs, "launches": launches, "reply_array_bytes": frames}
+
+
+def phase_cross_silo_card_vs_cpu():
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg_cross_silo import (
+        run_fedavg_cross_silo)
+    from fedml_tpu_torch.data.synthetic import make_blob_federated
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    diffs = {}
+    try:
+        ds = make_blob_federated(client_num=8, dim=256, class_num=10, seed=2)
+        for policy in ("none", "topk_ef"):
+            finals = [run_fedavg_cross_silo(
+                ds, create_model("lr", ds.class_num, input_shape=(256,)),
+                worker_num=4, comm_round=1, compression=policy,
+                train_cfg=TrainConfig(epochs=1, batch_size=16, lr=0.1,
+                                      shuffle=False), device=d)[0]
+                for d in ("cuda", "cpu")]
+            diffs[policy] = max(float((finals[0][k].cpu()
+                                       - finals[1][k]).abs().max())
+                                for k in finals[1])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    for policy, diff in diffs.items():
+        if not diff <= 1e-5:
+            raise AssertionError(f"cross-silo LR round card vs CPU under "
+                                 f"{policy}: max abs diff {diff}")
+        log(f"cross-silo LR round, card vs CPU, {policy}: max abs param "
+            f"diff {diff:.3g} (atol 1e-5)")
+    return {"max_abs_diff": diffs}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -678,6 +992,9 @@ def main() -> None:
     record["flash"] = phase_flash_vs_plain()
     record["lm_path"] = phase_lm_path()
     record["lm_card_vs_cpu"] = phase_lm_card_vs_cpu()
+    record["quant"] = phase_quant_vs_plain()
+    record["silo_path"] = phase_cross_silo_path()
+    record["silo_card_vs_cpu"] = phase_cross_silo_card_vs_cpu()
     k = record["kernel"]
     kernels = [{
         "name": "wmean_f32", "route": "cuda",
@@ -701,6 +1018,22 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "bound_ms_tf32": t["bound_ms_tf32"]})
+    for kern, name, line in (("quant", "quantize_int8", 26),
+                             ("dequant", "dequantize_int8", 40)):
+        t = record["quant"]["timing"]["cnn_delta"][kern]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fedml_tpu_torch/csrc/quantize.cu",
+            "replaces": f"fedml_tpu/ops/quantize.py:{line}",
+            "launches": record["silo_path"]["launches"][kern],
+            "max_abs_err": record["quant"]["max_abs_err"][kern],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "ms_at_k": record["quant"]["timing"]["topk_survivors"][kern][
+                "ms"]})
+    kernels[-1]["ms_residual_at_k"] = record["quant"]["timing"][
+        "topk_survivors"]["dequant_sub"]["ms"]
     kernels = {"kernels": kernels}
     with open(os.path.join(ROOT, "runs", "chip_smoke", "record.json"),
               "w") as f:

@@ -31,6 +31,43 @@ def tree_weighted_mean(stacked: StateDict, weights: torch.Tensor) -> StateDict:
     return {k: leaf_mean(v) for k, v in stacked.items()}
 
 
+def tree_add(a: StateDict, b: StateDict) -> StateDict:
+    """Leafwise ``a + b``."""
+    return {k: a[k] + b[k] for k in a}
+
+
+def tree_sub(a: StateDict, b: StateDict) -> StateDict:
+    """Leafwise ``a - b``."""
+    return {k: a[k] - b[k] for k in a}
+
+
+# -- streaming weighted fold --------------------------------------------------
+# The three steps of a weighted mean computed as an in-order left fold:
+#   acc = init(x_0, w_0); acc = step(acc, x_i, w_i) ...; out = finish(acc, W)
+# Folding updates one at a time, as they arrive, instead of stacking the
+# cohort lets the cross-silo server aggregate with O(1) live state. The fold
+# is the canonical reduction: two evaluations that apply these steps in the
+# same index order give bit-identical results. Weights are f32 scalars
+# (numpy float32 or Python floats holding one); a Python float multiplies
+# an f32 tensor in f32.
+
+def tree_weighted_fold_init(x: StateDict, w) -> StateDict:
+    """First fold term: ``x * w`` per leaf. Deliberately not zeros + add:
+    ``0.0 + (-0.0)`` is ``+0.0``, so seeding with zeros would flip signed
+    zeros."""
+    return {k: v * float(w) for k, v in x.items()}
+
+
+def tree_weighted_fold_step(acc: StateDict, x: StateDict, w) -> StateDict:
+    """Fold one update in: ``acc + x * w`` per leaf."""
+    return {k: acc[k] + x[k] * float(w) for k in acc}
+
+
+def tree_fold_finish(acc: StateDict, total) -> StateDict:
+    """Normalize the folded sum by the total weight."""
+    return {k: v / float(total) for k, v in acc.items()}
+
+
 def tree_stack(trees: Sequence[StateDict]) -> StateDict:
     """Stack congruent state dicts along a new leading axis."""
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}

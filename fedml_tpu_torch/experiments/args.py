@@ -21,9 +21,21 @@ def add_federated_args(parser: argparse.ArgumentParser):
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--client_optimizer", type=str, default="sgd")
     parser.add_argument("--backend", type=str, default="simulation",
-                        choices=["simulation", "spmd", "inproc", "tcp",
-                                 "grpc"],
-                        help="only 'simulation' is ported; the others raise")
+                        choices=["simulation", "spmd", "inproc", "mpi",
+                                 "tcp", "grpc"],
+                        help="simulation (FedAvgAPI) or the cross-silo "
+                             "protocol over the in-process router (inproc; "
+                             "mpi is the same router); spmd, tcp and grpc "
+                             "are not ported yet and raise")
+    parser.add_argument("--compression", type=str, default=None,
+                        help="cross-silo wire policy: none | delta_int8 | "
+                             "topk_ef | topk_ef_int8, optionally with a "
+                             "top-k keep fraction (topk_ef_int8:0.05); "
+                             "$FEDML_TPU_TORCH_COMPRESSION overrides")
+    parser.add_argument("--compress", action="store_true",
+                        help="legacy cross-silo flag: int8 uplink deltas "
+                             "only (delta_int8 without the downlink); use "
+                             "--compression for both directions")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the run uses (default cuda; "
                              "raises when no GPU is present — pass "

@@ -2,14 +2,18 @@
 fedml_experiments/standalone/fedavg/main_fedavg.py), the port's
 counterpart of ``fedml_tpu/experiments/main_fedavg.py``.
 
-Runs the ``simulation`` backend (FedAvgAPI) on ``--device`` (default
-``cuda``; no GPU and no ``--device cpu`` raises). The other backends,
+Runs on ``--device`` (default ``cuda``; no GPU and no ``--device cpu``
+raises) either the ``simulation`` backend (FedAvgAPI) or the cross-silo
+protocol (``--backend inproc``, or ``mpi``, the same in-process router: one
+server and ``client_num_per_round`` silo actors exchanging messages, with
+the wire policy ``--compression``). The other backends,
 ``--checkpoint_dir``, ``--fused_rounds`` and ``--obs_dir`` are not ported
 yet and raise ``NotImplementedError``.
 
 Usage: python -m fedml_tpu_torch.experiments.main_fedavg \
     --dataset femnist_gen --client_num_in_total 200 --client_num_per_round 10 \
-    --batch_size 20 --lr 0.1 --comm_round 5
+    --batch_size 20 --lr 0.1 --comm_round 5 \
+    [--backend inproc --compression topk_ef_int8:0.05]
 """
 
 from __future__ import annotations
@@ -53,13 +57,53 @@ def run_simulation(args, ds, model, task, sink):
     return rec
 
 
+def run_cross_silo(args, ds, model, task, sink):
+    """The cross-silo protocol over the in-process router, one silo per
+    sampled client (``worker_num = client_num_per_round``), evaluating
+    every round. Logs one record a round and a final summary record with
+    the wire bytes, each round's duration and the phases' host ms (phases
+    that end in device work synchronize, so they include it)."""
+    from fedml_tpu_torch.algorithms.fedavg_cross_silo import (
+        run_fedavg_cross_silo)
+    from fedml_tpu_torch.utils.tracing import RoundTimer
+
+    timer = RoundTimer()
+    _, history = run_fedavg_cross_silo(
+        ds, model, task=task, worker_num=args.client_num_per_round,
+        comm_round=args.comm_round, train_cfg=make_train_config(args),
+        backend=args.backend, compress=args.compress,
+        compression=args.compression, seed=args.seed,
+        prefetch_depth=args.prefetch_depth, obs_dir=args.obs_dir,
+        timer=timer, device=args.device)
+    for rec in history:
+        sink.log(rec, step=rec["round"])
+    rounds = max(1, len(history))
+    sink.log({"summary": "cross_silo", "rounds": len(history),
+              "round_duration_s": [r["duration_s"]
+                                   for r in timer.round_records()],
+              "comm_bytes_up": timer.comm_bytes_up,
+              "comm_bytes_down": timer.comm_bytes_down,
+              "comm_bytes_up_per_round": timer.comm_bytes_up / rounds,
+              "comm_bytes_down_per_round": timer.comm_bytes_down / rounds,
+              **{f"gauge_{k}": v for k, v in timer.gauges.items()},
+              **{f"phase_{k}_ms": v * 1e3
+                 for k, v in timer.means().items()},
+              **{f"phase_{k}_ms_per_round": v * 1e3 / rounds
+                 for k, v in timer.totals.items()}})
+    return history[-1] if history else {}
+
+
+BACKEND_RUNNERS = {"simulation": run_simulation, "inproc": run_cross_silo,
+                   "mpi": run_cross_silo}
+
+
 def _not_ported(args) -> None:
     """Raise for the flags whose paths this slice does not run yet, before
     any data is built."""
-    if args.backend != "simulation":
+    if args.backend not in BACKEND_RUNNERS:
         raise NotImplementedError(
             f"--backend {args.backend} is not ported yet: ROADMAP Queue 1 "
-            "(spmd: item 26; inproc/tcp/grpc cross-silo: item 22)")
+            "(spmd: item 26; tcp/grpc: Slice D item 22b)")
     if args.fused_rounds:
         raise NotImplementedError(
             "--fused_rounds is not ported yet: ROADMAP Queue 1, Slice A "
@@ -89,7 +133,7 @@ def main(argv=None):
     ds, model, task = build_dataset_and_model(args)
     sink = MetricsSink(args.run_dir, config=vars(args),
                        use_wandb=args.use_wandb)
-    final = run_simulation(args, ds, model, task, sink)
+    final = BACKEND_RUNNERS[args.backend](args, ds, model, task, sink)
     sink.finish()
     logging.info("final: %s", final)
     return final

@@ -73,6 +73,19 @@ class RoundTimer:
         self.gauge("host_rss_peak_mb", mb)
         return mb
 
+    @property
+    def comm_bytes_up(self) -> int:
+        """Client->server wire bytes (encoded frame lengths, credited by
+        the cross-silo server from its transport endpoint)."""
+        with self._lock:
+            return self.counters["comm_bytes_up"]
+
+    @property
+    def comm_bytes_down(self) -> int:
+        """Server->client wire bytes (encoded frame lengths)."""
+        with self._lock:
+            return self.counters["comm_bytes_down"]
+
     def begin_round(self, round_idx: int) -> None:
         """Open round ``round_idx``: snapshot every phase/counter so
         ``end_round`` can attribute the deltas to this round. An

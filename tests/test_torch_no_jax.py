@@ -48,8 +48,17 @@ api = FedAvgAPI(ds, lm, task="nwp", device="cpu", config=FedAvgConfig(
     comm_round=1, client_num_per_round=2,
     train=TrainConfig(batch_size=2, lr=0.1)))
 _, stats = api.run_round(0)
+# one cross-silo round over the compressed wire (top-k + int8 + EF)
+from fedml_tpu_torch.algorithms.fedavg_cross_silo import run_fedavg_cross_silo
+from fedml_tpu_torch.data.synthetic import make_blob_federated
+bds = make_blob_federated(client_num=4, seed=0)
+_, hist = run_fedavg_cross_silo(
+    bds, create_model("lr", bds.class_num, input_shape=(20,)), worker_num=2,
+    comm_round=1, train_cfg=TrainConfig(batch_size=16, lr=0.1),
+    compression="topk_ef_int8:0.1", device="cpu")
 print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
-                  "lm_tokens": float(stats["count"])}))
+                  "lm_tokens": float(stats["count"]),
+                  "silo_rounds": [r["round"] for r in hist]}))
 """
 
 
@@ -64,7 +73,10 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["round"] == 0
     assert out["lm_tokens"] > 0
-    for m in ("ops.aggregate", "ops.flash_attention", "models.transformer"):
+    assert out["silo_rounds"] == [0]
+    for m in ("ops.aggregate", "ops.flash_attention", "models.transformer",
+              "ops.quantize", "comm.compression",
+              "algorithms.fedavg_cross_silo"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
     assert not bad, bad
