@@ -4,7 +4,10 @@
 
 1. finds the card, prints its name and power limit, builds the CUDA kernels
    from csrc/ (one nvcc per source, all started together, printing nvcc's
-   -Xptxas -v lines) and prints the TF32 settings;
+   -Xptxas -v lines), reads each flash kernel's registers and spills and,
+   where the toolkit has cuobjdump, counts its tensor-core (HMMA)
+   instructions (the backward pair must have them), and prints the TF32
+   settings;
 2. holds the aggregation kernel against its plain PyTorch version on the
    card, at the FedAvg CNN's shape [10, 1,206,590] and at edge shapes, and
    times kernel, plain version and one library call with CUDA events;
@@ -17,8 +20,11 @@
    same weights (TF32 off) and compares the parameters;
 5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions on the card, at the LM path's shape [4, 2048, 4,
-   64] f32 causal and at edge shapes, and times kernels, plain versions and
-   scaled_dot_product_attention (the library yardstick only);
+   64] f32 causal and at edge shapes (D = 128 at S = 2048, a ragged S,
+   bf16 at the path's shape, rows that take the backward's scalar copy
+   path), and times kernels, plain versions and
+   scaled_dot_product_attention (the library yardstick only: its forward
+   for the forward kernel, its backward alone for the backward pair);
 6. drives the LM path through ``FedAvgAPI``: 3 FedAvg nwp rounds of the
    full-width TransformerLM (vocab 1024, width 256, depth 4, 4 heads, S =
    2048) with ``make_flash_attention(128, 128)`` on a token federation (4
@@ -64,7 +70,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # one H100 SXM (NVIDIA's data sheet): HBM bytes/s, f32 (non-tensor-core)
-# FLOP/s and dense TF32 tensor-core FLOP/s
+# FLOP/s and dense TF32 tensor-core FLOP/s; f32-accurate 3xTF32 takes
+# three TF32 products for each f32 one
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -156,12 +163,66 @@ def phase_device_and_build():
         for line in lib.build_log.splitlines():
             if "ptxas" in line:
                 print(line, flush=True)
+    flash_report = _flash_kernel_report(libs[1])
     tf32 = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
             "float32_matmul_precision":
                 torch.get_float32_matmul_precision()}
     log(f"TF32 settings for the run: {tf32}")
-    return {"smi": smi, "tf32": tf32}
+    return {"smi": smi, "tf32": tf32, "flash_kernels": flash_report}
+
+
+_FLASH_FN = (r"(flash_(?:fwd|bwd_dkdv|bwd_dq)_kernel)I(\w+?)Li(\d+)E")
+
+
+def _flash_label(m) -> str:
+    """``flash_bwd_dq_kernel<f32,64>`` from a match of ``_FLASH_FN``."""
+    dtype = "bf16" if "bfloat16" in m.group(2) else "f32"
+    return f"{m.group(1)}<{dtype},{m.group(3)}>"
+
+
+def _flash_kernel_report(lib):
+    """Registers and spill bytes of every flash kernel instance (from the
+    build's -Xptxas -v lines, when this process built the library) and its
+    count of tensor-core instructions (HMMA/HGMMA in cuobjdump -sass, where
+    the toolkit has cuobjdump). Raises if a backward instance has none."""
+    import re
+    report, fn = {}, None
+    for line in lib.build_log.splitlines():
+        m = re.search(_FLASH_FN, line)
+        if "Compiling entry function" in line:
+            fn = _flash_label(m) if m else None
+            if fn:
+                report[fn] = {}
+        elif fn:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[fn]["registers"] = int(m.group(1))
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(cuobjdump):
+        log("cuobjdump not found: tensor-core instructions not counted")
+        return report
+    sass = subprocess.run([cuobjdump, "-sass", lib.path], capture_output=True,
+                          text=True, check=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(_FLASH_FN, line)
+            fn = _flash_label(m) if m else None
+            if fn:
+                report.setdefault(fn, {})["tensor_core_instructions"] = 0
+        elif fn and re.search(r"\bHG?MMA\b", line):
+            report[fn]["tensor_core_instructions"] += 1
+    for fn in sorted(report):
+        log(f"{fn}: {report[fn]}")
+        if "bwd" in fn and report[fn].get("tensor_core_instructions") == 0:
+            raise AssertionError(f"{fn} has no tensor-core instruction")
+    return report
 
 
 def phase_kernel_vs_plain():
@@ -354,11 +415,16 @@ def _flash_work(b, s, h, d, causal, elem_bytes=4):
 
 
 def _bounds(flops, nbytes):
+    """The least time at each rate: f32 on CUDA cores, f32-accurate 3xTF32
+    and one-pass TF32 on the tensor cores. ``bound_ms`` is the 3xTF32 one,
+    the fastest route to f32 accuracy on the card."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": 1e3 * max(t_bytes, flops / F32_FLOP_PER_S),
+    t_3x = 3 * flops / TF32_FLOP_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_3x),
+            "bound_ms_f32": 1e3 * max(t_bytes, flops / F32_FLOP_PER_S),
+            "bound_ms_3xtf32": 1e3 * max(t_bytes, t_3x),
             "bound_ms_tf32": 1e3 * max(t_bytes, flops / TF32_FLOP_PER_S),
-            "bound_by": ("bytes" if t_bytes >= flops / F32_FLOP_PER_S
-                         else "operations")}
+            "bound_by": "bytes" if t_bytes >= t_3x else "operations"}
 
 
 def phase_flash_vs_plain():
@@ -371,6 +437,10 @@ def phase_flash_vs_plain():
     gen.manual_seed(1)
 
     def inputs(b, s, h, d, dtype=torch.float32, strided=False):
+        if strided == "misaligned":  # one element into a buffer
+            return [torch.randn(b * s * h * d + 1, generator=gen,
+                                device=dev)[1:].view(b, s, h, d)
+                    for _ in range(4)]
         if strided:  # q, k, v as views of one qkv projection
             qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev)
             q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, -1))
@@ -393,10 +463,23 @@ def phase_flash_vs_plain():
              ("d16_ragged_s48", (2, 48, 4, 16), True, torch.float32, False),
              ("d128", (2, 256, 4, 128), True, torch.float32, False),
              ("bf16", (2, 256, 4, 64), True, torch.bfloat16, False),
-             ("contiguous", (2, 512, 4, 64), True, torch.float32, False)]
-    checks, max_abs = [], {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+             ("contiguous", (2, 512, 4, 64), True, torch.float32, False),
+             # the tensor-core backward's risky tilings
+             ("d128_s2048", (2, 2048, 4, 128), True, torch.float32, False),
+             ("ragged_s1000", (2, 1000, 4, 64), True, torch.float32, False),
+             ("bf16_path_shape", LM_SHAPE, True, torch.bfloat16, True),
+             ("scalar_copy_path", (2, 200, 4, 64), True, torch.float32,
+              "misaligned")]
+    # the largest errors of the f32 cases (the kernels' JSON entries) and
+    # of the bf16 ones, which take their own tolerance
+    checks = []
+    max_abs = {dt: {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+               for dt in (torch.float32, torch.bfloat16)}
     for name, shape, causal, dtype, strided in cases:
         q, k, v, do = inputs(*shape, dtype=dtype, strided=strided)
+        if fa.takes_async_copies(q, k, v, do) != (strided != "misaligned"):
+            raise AssertionError(f"{name}: expected the other copy path "
+                                 f"of the backward kernels")
         out, lse = fa.flash_fwd(q, k, v, causal)
         want_out, want_lse = fa.fwd_reference(q, k, v, causal)
         delta = fa.attention_delta(want_out, do)
@@ -421,7 +504,7 @@ def phase_flash_vs_plain():
                 raise AssertionError(f"{name} {what}: kernel disagrees with "
                                      f"the plain version {rel(got, want)}")
             errs[what] = rel(got, want)
-            max_abs[kern] = max(max_abs[kern], errs[what][0])
+            max_abs[dtype][kern] = max(max_abs[dtype][kern], errs[what][0])
         checks.append({"case": name, "shape": list(shape), "causal": causal,
                        "dtype": str(dtype), "strided": strided,
                        "max_abs_rel_err": errs})
@@ -432,7 +515,8 @@ def phase_flash_vs_plain():
     # timing at the path's shape and layout (q, k, v views of one qkv
     # projection): two input sets, kernels and plain versions captured in
     # CUDA graphs; SDPA on the same values laid out [B, H, S, D]
-    # (contiguous), forward alone and forward + backward
+    # (contiguous): its forward, its backward alone (the forward run once
+    # outside the timed window) and forward + backward
     b, s, h, d = LM_SHAPE
     sets = []
     for _ in range(2):
@@ -459,23 +543,35 @@ def phase_flash_vs_plain():
         o = F.scaled_dot_product_attention(*leaves, is_causal=True)
         torch.autograd.grad(o, leaves, grad_outputs=do)
     sdpa_both = cuda_time_eager_ms(sdpa_fwd_bwd, iters)
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = cuda_time_eager_ms(
+        lambda: torch.autograd.grad(o, leaves, grad_outputs=do,
+                                    retain_graph=True), iters)
     work = _flash_work(b, s, h, d, True)
     timing = {}
     for kern, (ms, plain_ms) in t.items():
         flops, nbytes = work[kern]
         timing[kern] = {"ms": ms, "plain_ms": plain_ms,
-                        "library_ms": sdpa_fwd if kern == "fwd" else sdpa_both,
+                        "library_ms": sdpa_fwd if kern == "fwd" else sdpa_bwd,
+                        "library_fwd_bwd_ms": sdpa_both,
                         "flop": flops, "bytes": nbytes,
                         "tflops": flops / ms / 1e9,
                         **_bounds(flops, nbytes)}
         log(f"flash {kern} {list(LM_SHAPE)} f32 causal: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, SDPA {timing[kern]['library_ms']:.4f}"
-            f" ms ({'fwd' if kern == 'fwd' else 'fwd+bwd'}), bound "
-            f"{timing[kern]['bound_ms']:.4f} ms f32 / "
+            f" ms ({'fwd' if kern == 'fwd' else 'bwd alone'}), bound "
+            f"{timing[kern]['bound_ms_f32']:.4f} ms f32 / "
+            f"{timing[kern]['bound_ms_3xtf32']:.4f} ms 3xTF32 / "
             f"{timing[kern]['bound_ms_tf32']:.4f} ms TF32 "
             f"({flops / 1e9:.2f} GFLOP) -> {timing[kern]['tflops']:.1f} "
             f"TFLOP/s")
-    return {"checks": checks, "max_abs_err": max_abs, "timing": timing}
+    pair = t["dkdv"][0] + t["dq"][0]
+    log(f"flash backward pair (dK/dV + dQ) {pair:.4f} ms against SDPA's "
+        f"backward alone {sdpa_bwd:.4f} ms ({pair / sdpa_bwd:.3f}x); SDPA "
+        f"forward + backward {sdpa_both:.4f} ms")
+    return {"checks": checks, "max_abs_err": max_abs[torch.float32],
+            "max_abs_err_bf16": max_abs[torch.bfloat16], "timing": timing,
+            "pair_ms": pair, "sdpa_bwd_ms": sdpa_bwd}
 
 
 def _lm_launches(api, rounds, evals):
@@ -1014,9 +1110,13 @@ def main() -> None:
             "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
             "launches": record["lm_path"]["launches"][kern],
             "max_abs_err": record["flash"]["max_abs_err"][kern],
+            "max_abs_err_bf16": record["flash"]["max_abs_err_bf16"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_fwd_bwd_ms": t["library_fwd_bwd_ms"],
+            "bound_ms_f32": t["bound_ms_f32"],
+            "bound_ms_3xtf32": t["bound_ms_3xtf32"],
             "bound_ms_tf32": t["bound_ms_tf32"]})
     for kern, name, line in (("quant", "quantize_int8", 26),
                              ("dequant", "dequantize_int8", 40)):

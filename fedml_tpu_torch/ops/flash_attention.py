@@ -16,7 +16,8 @@ On CPU tensors each runs its plain version (:func:`fwd_reference`,
 dense ``[B, H, S, S]`` scores. There is no fallback between the two: a CUDA
 tensor launches the kernel or raises. ``delta = rowsum(dO * O)`` is plain
 torch between the forward and the backward kernels, as the JAX package
-leaves it to XLA.
+leaves it to XLA. The forward runs on CUDA cores; the backward pair runs
+on the tensor cores in f32-accurate 3xTF32 (the source's header says how).
 
 :func:`flash_attention` is the differentiable function and
 :func:`make_flash_attention` the transformer's ``attn_fn`` factory. The
@@ -141,6 +142,16 @@ def _check_cuda(tensors, names):
                              f"{(b, s, h, d)}")
         out.append(t if t.stride(-1) == 1 else t.contiguous())
     return out
+
+
+def takes_async_copies(*tensors) -> bool:
+    """Whether the backward kernels copy these inputs' tiles with 16-byte
+    ``cp.async`` (every row 16-byte aligned: the data pointer and the
+    (b, s, h) strides in bytes) rather than their scalar copy path, as
+    ``rows_aligned16`` in ``csrc/flash_attention.cu`` decides."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:3]) for t in tensors)
 
 
 def _strides(*tensors):

@@ -160,6 +160,69 @@ def test_auto_blocks_raise_not_implemented():
                       max_len=8, attn_fn="auto")
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit masking: the kernels' hi part."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """f32 truncated to TF32: what the tensor core reads of an f32 register
+    (the kernels pass the lo part unrounded)."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b on TF32 operands in f32: one pass (hi * hi), or 3xTF32 (lo *
+    hi + hi * lo + hi * hi, with lo = x - hi as the tensor core reads it)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _emulated_backward(q, k, v, do, lse, delta, passes):
+    """The tensor-core backward of one causal head ([S, D] operands) with
+    every product in TF32: the transposed scores K Q^T and V dO^T, P and dS
+    from them, dV = P^T dO, dK = dS^T Q, dQ = dS K."""
+    s, d = q.shape
+    scale = 1.0 / d ** 0.5
+    pos = torch.arange(s)
+    future = pos[None, :] < pos[:, None]  # [key, query]: query before key
+    pt = torch.exp(_mm_tf32(k, q.T, passes) * scale - lse[None, :])
+    pt = torch.where(future, torch.zeros_like(pt), pt)
+    dst = pt * (_mm_tf32(v, do.T, passes) - delta[None, :]) * scale
+    return (_mm_tf32(dst, q, passes), _mm_tf32(pt, do, passes),
+            _mm_tf32(dst.T.contiguous(), k, passes))
+
+
+def test_3xtf32_backward_keeps_f32_tolerance_where_tf32_does_not():
+    """Why the backward kernels take three TF32 passes a product: on one
+    head at S = 2048, D = 64 (the LM path's), the 3xTF32 dK, dV and dQ
+    hold the card's f32 tolerance (rtol = atol = 1e-4) against the plain
+    versions, and one TF32 pass errs at least 10x more."""
+    q, k, v, do = _t(*_qkv(b=1, s=2048, h=1, d=64, seed=7, n=4))
+    out, lse = fa.fwd_reference(q, k, v, True)
+    delta = fa.attention_delta(out, do)
+    want_dk, want_dv = fa.bwd_dkdv_reference(q, k, v, do, lse, delta, True)
+    want_dq = fa.bwd_dq_reference(q, k, v, do, lse, delta, True)
+    wants = [w[0, :, 0] for w in (want_dk, want_dv, want_dq)]
+    heads = [t[0, :, 0] for t in (q, k, v, do)]
+    errs = {}
+    for passes in (3, 1):
+        got = _emulated_backward(*heads, lse[0, 0], delta[0, 0], passes)
+        errs[passes] = max(float((g - w).abs().max())
+                           for g, w in zip(got, wants))
+        if passes == 3:
+            for g, w, name in zip(got, wants, ("dk", "dv", "dq")):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
+                                           msg=name)
+    print(f"max abs error against the plain versions: 3xTF32 {errs[3]:.3g},"
+          f" one TF32 pass {errs[1]:.3g}")
+    assert errs[1] >= 10 * errs[3], errs
+
+
 @pytest.fixture
 def cuda_device():
     """Decided inside the test, never at import (the xdist workers must
@@ -177,6 +240,12 @@ def cuda_device():
     (48, 16, True, torch.float32, False),
     (128, 32, True, torch.bfloat16, False),
     (256, 64, True, torch.float32, True),
+    # the tensor-core backward's risky tilings: D = 128 streams 32-row q
+    # tiles in dK/dV; a ragged S ends inside a tile and a 16-row warp
+    # slice; bf16 takes fewer 3xTF32 passes, at the LM path's S and layout
+    (2048, 128, True, torch.float32, False),
+    (1000, 64, True, torch.float32, False),
+    (2048, 64, True, torch.bfloat16, True),
 ])
 def test_kernels_match_plain_versions_on_card(cuda_device, s, d, causal,
                                               dtype, strided):
@@ -205,6 +274,28 @@ def test_kernels_match_plain_versions_on_card(cuda_device, s, d, causal,
     want_dq = fa.bwd_dq_reference(q, k, v, do, want_lse, delta, causal)
     for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_backward_kernels_scalar_copy_path_on_card(cuda_device):
+    """Inputs whose rows are not 16-byte aligned (views one element into a
+    buffer) take the backward kernels' scalar copy path, and agree."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    b, s, h, d = 2, 200, 4, 64
+    q, k, v, do = (torch.randn(b * s * h * d + 1, generator=gen,
+                               device=cuda_device)[1:].view(b, s, h, d)
+                   for _ in range(4))
+    assert not fa.takes_async_copies(q, k, v, do)
+    assert fa.takes_async_copies(*(t.clone() for t in (q, k, v, do)))
+    out, lse = fa.fwd_reference(q, k, v, True)
+    delta = fa.attention_delta(out, do)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, True)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    want_dk, want_dv = fa.bwd_dkdv_reference(q, k, v, do, lse, delta, True)
+    want_dq = fa.bwd_dq_reference(q, k, v, do, lse, delta, True)
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
