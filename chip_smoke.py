@@ -6,8 +6,8 @@
    from csrc/ (one nvcc per source, all started together, printing nvcc's
    -Xptxas -v lines), reads each flash kernel's registers and spills and,
    where the toolkit has cuobjdump, counts its tensor-core (HMMA)
-   instructions (the backward pair must have them), and prints the TF32
-   settings;
+   instructions (every flash kernel instance must have them), and prints
+   the TF32 settings;
 2. holds the aggregation kernel against its plain PyTorch version on the
    card, at the FedAvg CNN's shape [10, 1,206,590] and at edge shapes, and
    times kernel, plain version and one library call with CUDA events;
@@ -21,7 +21,7 @@
 5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions on the card, at the LM path's shape [4, 2048, 4,
    64] f32 causal and at edge shapes (D = 128 at S = 2048, a ragged S,
-   bf16 at the path's shape, rows that take the backward's scalar copy
+   bf16 at the path's shape, rows that take the kernels' scalar copy
    path), and times kernels, plain versions and
    scaled_dot_product_attention (the library yardstick only: its forward
    for the forward kernel, its backward alone for the backward pair);
@@ -185,7 +185,7 @@ def _flash_kernel_report(lib):
     """Registers and spill bytes of every flash kernel instance (from the
     build's -Xptxas -v lines, when this process built the library) and its
     count of tensor-core instructions (HMMA/HGMMA in cuobjdump -sass, where
-    the toolkit has cuobjdump). Raises if a backward instance has none."""
+    the toolkit has cuobjdump). Raises if an instance has none."""
     import re
     report, fn = {}, None
     for line in lib.build_log.splitlines():
@@ -220,7 +220,7 @@ def _flash_kernel_report(lib):
             report[fn]["tensor_core_instructions"] += 1
     for fn in sorted(report):
         log(f"{fn}: {report[fn]}")
-        if "bwd" in fn and report[fn].get("tensor_core_instructions") == 0:
+        if report[fn].get("tensor_core_instructions") == 0:
             raise AssertionError(f"{fn} has no tensor-core instruction")
     return report
 
@@ -479,7 +479,7 @@ def phase_flash_vs_plain():
         q, k, v, do = inputs(*shape, dtype=dtype, strided=strided)
         if fa.takes_async_copies(q, k, v, do) != (strided != "misaligned"):
             raise AssertionError(f"{name}: expected the other copy path "
-                                 f"of the backward kernels")
+                                 f"of the kernels")
         out, lse = fa.flash_fwd(q, k, v, causal)
         want_out, want_lse = fa.fwd_reference(q, k, v, causal)
         delta = fa.attention_delta(want_out, do)
@@ -565,6 +565,8 @@ def phase_flash_vs_plain():
             f"{timing[kern]['bound_ms_tf32']:.4f} ms TF32 "
             f"({flops / 1e9:.2f} GFLOP) -> {timing[kern]['tflops']:.1f} "
             f"TFLOP/s")
+    log(f"flash forward {t['fwd'][0]:.4f} ms against SDPA's forward "
+        f"{sdpa_fwd:.4f} ms ({t['fwd'][0] / sdpa_fwd:.3f}x)")
     pair = t["dkdv"][0] + t["dq"][0]
     log(f"flash backward pair (dK/dV + dQ) {pair:.4f} ms against SDPA's "
         f"backward alone {sdpa_bwd:.4f} ms ({pair / sdpa_bwd:.3f}x); SDPA "

@@ -31,16 +31,12 @@
 // MB of HBM traffic a call. They are bound by operations: 0.13, 0.26 and
 // 0.19 ms at the f32 CUDA-core peak (67 TFLOP/s); 0.052, 0.104 and 0.078
 // ms in f32-accurate 3xTF32 on the tensor cores (3 TF32 products for each
-// f32 one at 495 TFLOP/s).
+// f32 one at 495 TFLOP/s). All three run on the tensor cores, in 3xTF32;
+// in practice their ceiling is mma.sync's own TF32 rate, which reaches
+// about 63% of the published 495 (experiments/mma_peak.py; the full rate
+// needs wgmma).
 //
-// The forward is the simple, correct design: f32 FMAs on CUDA cores. A
-// block of 256 threads (16 x 16) holds its 64-row q tile and the current
-// 64-row k/v tile in shared memory (rows padded to D+1 floats); each thread
-// computes a 4 x 4 patch of the score tile, the row max and sum are
-// reduced with warp shuffles, and the probabilities go through shared
-// memory into the second product. It is bound by shared-memory loads.
-//
-// The backward pair runs on the tensor cores, in 3xTF32:
+// The design:
 // - mma.sync m16n8k8 TF32. Every f32 operand x is split into hi =
 //   tf32_rna(x) and lo = x - hi, and a product accumulates lo*hi + hi*lo
 //   + hi*hi in f32, small terms first (CUTLASS's OpMultiplyAddFastF32),
@@ -57,28 +53,43 @@
 //   fragments of two 8-column slices of a score product, in one
 //   instruction (an 8 x 8 b16 matrix is 8 rows x 4 f32, in the fragment's
 //   order); the second products' B fragments are scalar loads.
-// - p = exp2(s * scale * log2(e) - lse * log2(e)): one FFMA and the exp2
-//   unit where expf takes several instructions.
-// - A block of 4 warps owns a 64-row tile, 16 rows a warp. dK/dV computes
-//   the transposed scores S^T = K Q^T and dP^T = V dO^T (keys x queries),
-//   so their m16n8 accumulators are already the A operands of dV += P^T dO
-//   and dK += dS^T Q; dQ likewise feeds S and dS into dQ += dS K. The
+// - Scores in log2 units: exp(x * scale - m) is exp2(fmaf(x, scale *
+//   log2(e), -m')) with m' = m * log2(e), one FFMA and the exp2 unit where
+//   expf takes several instructions. lse stays in natural-log units in
+//   memory (the forward writes m' * ln(2) + log(l); the backward reads
+//   lse * log2(e)).
+// - A block of 4 warps owns a 64-row tile, 16 rows a warp. The forward
+//   and dQ own query rows and stream key tiles: S = Q K^T lands in m16n8
+//   accumulators that are already the A operands of O += P V (forward)
+//   and dQ += dS K. dK/dV owns key rows and computes the transposed
+//   scores S^T = K Q^T and dP^T = V dO^T (keys x queries), so its
+//   accumulators are the A operands of dV += P^T dO and dK += dS^T Q. The
 //   accumulator holds columns 2t, 2t+1 where the A fragment wants t, t+4;
 //   the order of k inside an 8-wide slice is free, so the B fragment loads
 //   rows 2t and 2t+1 instead. P and dS never leave the registers.
-// - The streamed tiles (q, dO, lse, delta in dK/dV; k, v in dQ) are
-//   double-buffered: the next tile's 16-byte cp.async copies are in flight
-//   while the current one computes, one __syncthreads a tile. A tile row
-//   is D elements and 16 bytes of padding, so the fragment loads (rows
-//   g, columns t, or rows 2t, columns g) hit 32 distinct banks and the
-//   copies stay 16-byte aligned. Inputs whose rows are not 16-byte aligned
-//   take a scalar copy path into the same layout.
+// - The forward's online softmax runs on the accumulators: a thread holds
+//   rows g and g + 8 of its warp's 16 and two columns of each 8-key slice,
+//   so a row's max is reduced over the 4 lanes of a quad (two xor
+//   shuffles); the running max starts at -1e30, finite, so the first
+//   correction is exp2(-huge) = 0, never inf - inf. The correction scales
+//   the O accumulators before P V is added; each thread keeps its own part
+//   of the denominator, reduced over the quad once, in the epilogue.
+// - The streamed tiles (k, v in the forward and dQ; q, dO, lse, delta in
+//   dK/dV) are double-buffered: the next tile's 16-byte cp.async copies
+//   are in flight while the current one computes, one __syncthreads a
+//   tile. A tile row is D elements and 16 bytes of padding, so the
+//   fragment loads (rows g, columns t, or rows 2t, columns g) hit 32
+//   distinct banks and the copies stay 16-byte aligned. Inputs whose rows
+//   are not 16-byte aligned take a scalar copy path into the same layout.
 // - Tiles: 64 keys x 64 queries; dK/dV streams 32 queries at D = 128, where
 //   the dK and dV accumulators take 128 registers a thread. No atomics: the
-//   split into two kernels keeps the result deterministic.
-// - Causal work is skewed (key tile 0 of dK/dV and the last q tile of dQ
-//   sweep every tile of the other side), so the grid is (b*h, tile) with
-//   the heaviest tiles at blockIdx.y = 0: they launch first.
+//   split into two backward kernels keeps the result deterministic.
+// - Causal work is skewed (the last q tile of the forward and dQ, and key
+//   tile 0 of dK/dV, sweep every tile of the other side), so the grid is
+//   (b*h, tile) with the heaviest tiles at blockIdx.y = 0: they launch
+//   first. Key tiles wholly in a q tile's future are skipped, and the
+//   masks are applied only on the tiles that meet the diagonal or the end
+//   of the sequence.
 //
 // Launch contract: the kernels run on the caller's stream, allocate nothing
 // and do not synchronise; each launcher returns cudaGetLastError().
@@ -91,10 +102,12 @@
 
 namespace {
 
-constexpr int kTile = 64;       // rows of a q tile and of a k/v tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kPitchP = kTile + 1;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kOwnRows = 16 * kWarps;  // a block's own tile: 16 rows a warp
 constexpr float kNegInf = -1e30f;  // the causal mask value, as the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   int64_t b, s, h;
@@ -112,7 +125,7 @@ struct Params {
   float* lse_out;      // lse (forward)
   Strides sq, sk, sv, sdo, s0, s1;
   int B, H, S, causal;
-  int vec;  // backward: every input row 16-byte aligned (cp.async)
+  int vec;  // every input row 16-byte aligned (cp.async)
   float scale;
 };
 
@@ -129,160 +142,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// rows [r0, r0 + kTile) of head (b, h) into dst (pitch floats a row), times
-// mul; rows past S are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch,
-                                          const void* src, Strides st, int b,
-                                          int h, int r0, int S, float mul) {
-  const T* base = static_cast<const T*>(src) + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int s = r0 + r;
-    dst[r * pitch + c] =
-        s < S ? to_f32(base[static_cast<int64_t>(s) * st.s + c]) * mul : 0.f;
-  }
-}
-
-// the sum over the 16 threads that share a row (16 neighbouring lanes)
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// s[i][j] += a[row i] . b[col j] over D, for the thread's 4 x 4 patch:
-// rows ty*4 + i of a, rows tx + 16 j of b (both [kTile][D+1] in shared)
-template <int D>
-__device__ __forceinline__ void patch_product(float (&s)[4][4], const float* a,
-                                              const float* b, int ty, int tx,
-                                              float mul_a) {
-  constexpr int DP = D + 1;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty * 4 + i) * DP + d] * mul_a;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPitchP);
-}
-
-// ---- forward: one block per (b*h, q tile) ---------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  constexpr int DP = D + 1, CPT = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kTile * DP;
-  float* Vs = Ks + kTile * DP;
-  float* Ps = Vs + kTile * DP;  // [q][k]
-
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int S = p.S;
-
-  // q * scale, as the TPU kernel scales q before the product
-  load_tile<T, D>(Qs, DP, p.q, p.sq, b, h, q0, S, p.scale);
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-  // causal: key tiles wholly in this q tile's future are skipped
-  const int k_end = p.causal ? min(S, q0 + kTile) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, DP, p.k, p.sk, b, h, k0, S, 1.f);
-    load_tile<T, D>(Vs, DP, p.v, p.sv, b, h, k0, S, 1.f);
-    __syncthreads();
-
-    float s[4][4] = {};
-    patch_product<D>(s, Qs, Ks, ty, tx, 1.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        if (kj >= S)
-          s[i][j] = -INFINITY;  // past the sequence: weight exactly 0
-        else if (p.causal && qi < kj)
-          s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pij = expf(s[i][j] - m_new);
-        sum += pij;
-        Ps[(ty * 4 + i) * kPitchP + tx + 16 * j] = pij;
-      }
-      l[i] = l[i] * corr + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * kPitchP + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = Vs[kk * DP + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-  T* out = static_cast<T*>(p.out0) + b * p.s0.b + h * p.s0.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= S) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      out[static_cast<int64_t>(qi) * p.s0.s + tx + 16 * c] =
-          from_f32<T>(acc[i][c] / lc);
-    if (tx == 0) p.lse_out[static_cast<int64_t>(bh) * S + qi] = m[i] + logf(lc);
-  }
-}
-
-// ---- backward: 3xTF32 on the tensor cores ---------------------------------
-
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kOwnRows = 16 * kBwdWarps;  // a block's own tile: 16 rows a warp
-constexpr float kLog2e = 1.4426950408889634f;
+// ---- the building blocks: 3xTF32 on the tensor cores, cp.async tiles ------
 
 // a tile row in shared memory: D elements and 16 bytes of padding
 template <typename T, int D>
@@ -453,14 +313,14 @@ __device__ __forceinline__ void copy_tile(T* dst, const void* src, Strides st,
   if (vec) {
     constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
     constexpr int kPerRow = D / kChunk;
-    for (int i = threadIdx.x; i < R * kPerRow; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
       const int r = i / kPerRow, c = (i % kPerRow) * kChunk, s = r0 + r;
       cp_async16(dst + r * P + c,
                  base + static_cast<int64_t>(min(s, S - 1)) * st.s + c,
                  s < S ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < R * D; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < R * D; i += kThreads) {
       const int r = i / D, c = i % D, s = r0 + r;
       dst[r * P + c] = s < S ? base[static_cast<int64_t>(s) * st.s + c]
                              : from_f32<T>(0.f);
@@ -472,7 +332,7 @@ __device__ __forceinline__ void copy_tile(T* dst, const void* src, Strides st,
 template <int R>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src,
                                           int64_t bh, int r0, int S) {
-  for (int i = threadIdx.x; i < R; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < R; i += kThreads) {
     const int s = r0 + i;
     cp_async4(dst + i, src + bh * S + min(s, S - 1), s < S ? 4 : 0);
   }
@@ -489,24 +349,170 @@ struct DkdvShape {
       sizeof(T) * (2 * kTileK + 4 * kTileQ) + sizeof(float) * 4 * BQ;
 };
 
-template <typename T, int D>
-struct DqShape {
+// a block that owns kOwn tiles of its 64 query rows (Q; Q and dO) and
+// streams double-buffered (K, V) stages of BK keys: the forward and dQ
+template <typename T, int D, int kOwn>
+struct KeyStreamShape {
   static constexpr int P = tile_pitch<T, D>();
   static constexpr int BK = 64;  // streamed key rows a tile
   static constexpr int kTileQ = kOwnRows * P;
   static constexpr int kTileK = BK * P;
-  // Q, dO; two stages of (K, V)
-  static constexpr size_t smem = sizeof(T) * (2 * kTileQ + 4 * kTileK);
+  static constexpr size_t smem = sizeof(T) * (kOwn * kTileQ + 4 * kTileK);
 };
+
+// stage `stage` of the streamed (K, V) tiles, key rows [k0, k0 + R), as
+// one cp.async group
+template <typename T, int D, int R>
+__device__ __forceinline__ void copy_kv_stage(T* Ks, T* Vs, int stage,
+                                              const Params& p, int b, int h,
+                                              int k0) {
+  constexpr int kTile = R * tile_pitch<T, D>();
+  copy_tile<T, D, R>(Ks + stage * kTile, p.k, p.sk, b, h, k0, p.S, p.vec);
+  copy_tile<T, D, R>(Vs + stage * kTile, p.v, p.sv, b, h, k0, p.S, p.vec);
+  cp_async_commit();
+}
+
+// ---- forward: one block per (b*h, 64-query tile), loop over key tiles -----
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+  using Sh = KeyStreamShape<T, D, 1>;
+  constexpr int P = Sh::P, BK = Sh::BK, NK = BK / 8, ND = D / 8;
+  constexpr bool kSplit = sizeof(T) == 4;  // bf16 is exact in TF32
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  T* Qs = reinterpret_cast<T*>(tile_smem);
+  T* Ks = Qs + Sh::kTileQ;        // [2][BK][P]
+  T* Vs = Ks + 2 * Sh::kTileK;    // [2][BK][P]
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // the last q tile, the most key tiles under causal, first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwnRows;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = (threadIdx.x / 32) * 16;  // the warp's first q row
+  const int S = p.S;
+  const float scale_log2 = p.scale * kLog2e;  // scores in log2 units
+
+  copy_tile<T, D, kOwnRows>(Qs, p.q, p.sq, b, h, q0, S, p.vec);
+  copy_kv_stage<T, D, BK>(Ks, Vs, 0, p, b, h, 0);
+
+  // rows wr + g and wr + g + 8: the running max (log2 units) and this
+  // thread's part of the denominator; O at cols 8n + 2t (+1)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[ND][4] = {};
+  // causal: key tiles wholly in this q tile's future are skipped
+  const int k_end = p.causal ? min(S, q0 + kOwnRows) : S;
+  int stage = 0;
+  for (int k0 = 0; k0 < k_end; k0 += BK, stage ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every thread is done with the other
+    if (k0 + BK < k_end) copy_kv_stage<T, D, BK>(Ks, Vs, stage ^ 1, p, b, h,
+                                                 k0 + BK);
+    const T* K = Ks + stage * Sh::kTileK;
+    const T* V = Vs + stage * Sh::kTileK;
+
+    // S = Q K^T over D: the warp's 16 queries x BK keys
+    float s[NK][4] = {};
+#pragma unroll
+    for (int kd = 0; kd < ND; ++kd) {
+      uint32_t qh[4], ql[4];
+      frag_a<kSplit>(qh, ql, Qs, P, wr, 8 * kd, lane);
+#pragma unroll
+      for (int j = 0; j < NK; j += 2) {
+        uint32_t bh_[2][2], bl_[2][2];
+        frag_b_t2<kSplit>(bh_, bl_, K, P, 8 * j, 8 * kd, lane);
+        mma_3xtf32<kSplit, kSplit>(s[j], qh, ql, bh_[0], bl_[0]);
+        mma_3xtf32<kSplit, kSplit>(s[j + 1], qh, ql, bh_[1], bl_[1]);
+      }
+    }
+
+    // masks only where the tile meets the causal diagonal or the end of
+    // the sequence: keys past S weigh exactly 0, future keys get -1e30
+    if ((p.causal && k0 + BK > q0) || k0 + BK > S) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + wr + g + 8 * (e >> 1);
+          const int kj = k0 + 8 * j + 2 * t + (e & 1);
+          if (kj >= S)
+            s[j][e] = -INFINITY;
+          else if (p.causal && qi < kj)
+            s[j][e] = kNegInf;
+        }
+    }
+
+    // online softmax: each row's max over its quad, the correction of O
+    // and l, then P in place (every lane shuffles, rows past S included)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      const float corr = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 2 * r; c < 2 * r + 2; ++c) {
+          s[j][c] = exp2f(fmaf(s[j][c], scale_log2, -m_new));
+          sum += s[j][c];
+        }
+      l[r] = fmaf(l[r], corr, sum);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V over the tile's keys
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      uint32_t ph[4], pl[4];
+      acc_as_a(ph, pl, s[j]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh_[2], bl_[2];
+        frag_b_perm<kSplit>(bh_, bl_, V, P, 8 * j, 8 * n, g, t);
+        mma_3xtf32<true, kSplit>(o[n], ph, pl, bh_, bl_);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the denominator over the quad
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  T* out = static_cast<T*>(p.out0) + b * p.s0.b + h * p.s0.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wr + g + 8 * r;
+    if (qi >= S) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        out[static_cast<int64_t>(qi) * p.s0.s + 8 * n + 2 * t + c] =
+            from_f32<T>(o[n][2 * r + c] / lc);
+    if (t == 0)
+      p.lse_out[static_cast<int64_t>(bh) * S + qi] = m[r] * kLn2 + logf(lc);
+  }
+}
 
 // ---- dK/dV: one block per (b*h, 64-key tile), loop over q tiles -----------
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Params p) {
   using Sh = DkdvShape<T, D>;
   constexpr int P = Sh::P, BQ = Sh::BQ, NQ = BQ / 8, ND = D / 8;
   constexpr bool kSplit = sizeof(T) == 4;  // bf16 is exact in TF32
-  extern __shared__ __align__(16) unsigned char bwd_smem[];
-  T* Ks = reinterpret_cast<T*>(bwd_smem);
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  T* Ks = reinterpret_cast<T*>(tile_smem);
   T* Vs = Ks + Sh::kTileK;
   T* Qs = Vs + Sh::kTileK;        // [2][BQ][P]
   T* dOs = Qs + 2 * Sh::kTileQ;   // [2][BQ][P]
@@ -615,12 +621,12 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(Params p) {
 
 // ---- dQ: one block per (b*h, 64-query tile), loop over key tiles ----------
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(Params p) {
-  using Sh = DqShape<T, D>;
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+  using Sh = KeyStreamShape<T, D, 2>;  // Q, dO
   constexpr int P = Sh::P, BK = Sh::BK, NK = BK / 8, ND = D / 8;
   constexpr bool kSplit = sizeof(T) == 4;
-  extern __shared__ __align__(16) unsigned char bwd_smem[];
-  T* Qs = reinterpret_cast<T*>(bwd_smem);
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  T* Qs = reinterpret_cast<T*>(tile_smem);
   T* dOs = Qs + Sh::kTileQ;
   T* Ks = dOs + Sh::kTileQ;       // [2][BK][P]
   T* Vs = Ks + 2 * Sh::kTileK;    // [2][BK][P]
@@ -633,16 +639,9 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(Params p) {
   const int S = p.S;
   const float scale_log2 = p.scale * kLog2e;
 
-  auto load_stage = [&](int stage, int k0) {
-    copy_tile<T, D, BK>(Ks + stage * Sh::kTileK, p.k, p.sk, b, h, k0, S,
-                        p.vec);
-    copy_tile<T, D, BK>(Vs + stage * Sh::kTileK, p.v, p.sv, b, h, k0, S,
-                        p.vec);
-    cp_async_commit();
-  };
   copy_tile<T, D, kOwnRows>(Qs, p.q, p.sq, b, h, q0, S, p.vec);
   copy_tile<T, D, kOwnRows>(dOs, p.d_o, p.sdo, b, h, q0, S, p.vec);
-  load_stage(0, 0);
+  copy_kv_stage<T, D, BK>(Ks, Vs, 0, p, b, h, 0);
 
   float lse[2], delta[2];  // of the rows wr + g and wr + g + 8; lse * log2(e)
 #pragma unroll
@@ -660,7 +659,8 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(Params p) {
   for (int k0 = 0; k0 < k_end; k0 += BK, stage ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // this tile is in; every thread is done with the other
-    if (k0 + BK < k_end) load_stage(stage ^ 1, k0 + BK);
+    if (k0 + BK < k_end) copy_kv_stage<T, D, BK>(Ks, Vs, stage ^ 1, p, b, h,
+                                                 k0 + BK);
     const T* K = Ks + stage * Sh::kTileK;
     const T* V = Vs + stage * Sh::kTileK;
 
@@ -726,7 +726,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(Params p) {
 
 enum Which { kFwd = 0, kDkdv = 1, kDq = 2 };
 
-// the backward kernels' 16-byte copies need every input row 16-byte aligned
+// the kernels' 16-byte copies need every input row 16-byte aligned
 template <typename T>
 bool rows_aligned16(const void* ptr, Strides st) {
   constexpr int64_t e = sizeof(T);
@@ -750,20 +750,20 @@ int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 template <typename T, int D>
 int launch(int which, const Params& p, cudaStream_t stream) {
-  const int tiles = (p.S + kTile - 1) / kTile;
-  if (which == kFwd)
-    return launch_kernel(flash_fwd_kernel<T, D>, dim3(tiles, p.B * p.H),
-                         kThreads, fwd_smem<D>(), p, stream);
   Params q = p;
   q.vec = rows_aligned16<T>(p.q, p.sq) && rows_aligned16<T>(p.k, p.sk) &&
-          rows_aligned16<T>(p.v, p.sv) && rows_aligned16<T>(p.d_o, p.sdo);
+          rows_aligned16<T>(p.v, p.sv) &&
+          (which == kFwd || rows_aligned16<T>(p.d_o, p.sdo));
   // the heaviest causal tiles at blockIdx.y = 0, which launch first
-  const dim3 grid(p.B * p.H, tiles);
+  const dim3 grid(p.B * p.H, (p.S + kOwnRows - 1) / kOwnRows);
+  if (which == kFwd)
+    return launch_kernel(flash_fwd_kernel<T, D>, grid, kThreads,
+                         KeyStreamShape<T, D, 1>::smem, q, stream);
   if (which == kDkdv)
-    return launch_kernel(flash_bwd_dkdv_kernel<T, D>, grid, kBwdThreads,
+    return launch_kernel(flash_bwd_dkdv_kernel<T, D>, grid, kThreads,
                          DkdvShape<T, D>::smem, q, stream);
-  return launch_kernel(flash_bwd_dq_kernel<T, D>, grid, kBwdThreads,
-                       DqShape<T, D>::smem, q, stream);
+  return launch_kernel(flash_bwd_dq_kernel<T, D>, grid, kThreads,
+                       KeyStreamShape<T, D, 2>::smem, q, stream);
 }
 
 template <typename T>

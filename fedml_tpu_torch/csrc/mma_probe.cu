@@ -1,5 +1,5 @@
 // A probe of the card's rate for mma.sync m16n8k8 TF32, the instruction
-// that the flash backward kernels (flash_attention.cu) run on. It ports no
+// that the flash kernels (flash_attention.cu) run on. It ports no
 // TPU kernel: it measures the ceiling of a kernel built on this
 // instruction, beside the card's published dense TF32 rate (which needs
 // wgmma). Every warp runs kChains independent accumulator chains of the

@@ -1,5 +1,5 @@
 """The card's rate for ``mma.sync`` m16n8k8 TF32, the instruction that the
-flash backward kernels run on (``csrc/mma_probe.cu``).
+flash kernels run on (``csrc/mma_probe.cu``).
 
 Launches the probe kernel (4 blocks of 8 warps an SM, 8 independent
 accumulator chains a warp, register operands only), checks its sums, times

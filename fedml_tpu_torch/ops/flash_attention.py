@@ -16,8 +16,8 @@ On CPU tensors each runs its plain version (:func:`fwd_reference`,
 dense ``[B, H, S, S]`` scores. There is no fallback between the two: a CUDA
 tensor launches the kernel or raises. ``delta = rowsum(dO * O)`` is plain
 torch between the forward and the backward kernels, as the JAX package
-leaves it to XLA. The forward runs on CUDA cores; the backward pair runs
-on the tensor cores in f32-accurate 3xTF32 (the source's header says how).
+leaves it to XLA. All three run on the tensor cores in f32-accurate
+3xTF32 (the source's header says how).
 
 :func:`flash_attention` is the differentiable function and
 :func:`make_flash_attention` the transformer's ``attn_fn`` factory. The
@@ -145,7 +145,7 @@ def _check_cuda(tensors, names):
 
 
 def takes_async_copies(*tensors) -> bool:
-    """Whether the backward kernels copy these inputs' tiles with 16-byte
+    """Whether the kernels copy these inputs' tiles with 16-byte
     ``cp.async`` (every row 16-byte aligned: the data pointer and the
     (b, s, h) strides in bytes) rather than their scalar copy path, as
     ``rows_aligned16`` in ``csrc/flash_attention.cu`` decides."""

@@ -223,6 +223,71 @@ def test_3xtf32_backward_keeps_f32_tolerance_where_tf32_does_not():
     assert errs[1] >= 10 * errs[3], errs
 
 
+def _emulated_forward(q, k, v, causal, passes, tile=64):
+    """The tensor-core forward of one head ([S, D] operands), tile by tile
+    as the kernel runs it: 64-query tiles sweeping 64-key tiles (key tiles
+    wholly in the future skipped), S = Q K^T and O += P V in TF32, scores
+    in log2 units with the scale folded into the exponent, the running max
+    from -1e30; ``(out [S, D], lse [S])`` in natural-log units."""
+    s_len, d = q.shape
+    scale_log2 = (1.0 / d ** 0.5) * float(np.log2(np.e))
+    out, lse = torch.empty_like(q), torch.empty(s_len)
+    for q0 in range(0, s_len, tile):
+        qt = q[q0:q0 + tile]
+        rows = torch.arange(q0, q0 + len(qt))
+        m = torch.full((len(qt),), -1e30)
+        l = torch.zeros(len(qt))
+        acc = torch.zeros(len(qt), d)
+        k_end = min(s_len, q0 + tile) if causal else s_len
+        for k0 in range(0, k_end, tile):
+            kt, vt = k[k0:k0 + tile], v[k0:k0 + tile]
+            s = _mm_tf32(qt, kt.T.contiguous(), passes)
+            if causal:
+                future = rows[:, None] < torch.arange(k0, k0 + len(kt))[None]
+                s = torch.where(future, torch.full_like(s, -1e30), s)
+            m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s * scale_log2 - m_new[:, None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[:, None] + _mm_tf32(p, vt, passes)
+            m = m_new
+        lc = l.clamp(min=1e-30)
+        out[q0:q0 + tile] = acc / lc[:, None]
+        lse[q0:q0 + tile] = m * float(np.log(2.0)) + torch.log(lc)
+    return out, lse
+
+
+@pytest.mark.parametrize("s, causal", [
+    (2048, True),    # the LM path's head shape
+    (1000, True),    # a ragged S: the last tiles end inside a warp's rows
+    (200, False),
+])
+def test_3xtf32_forward_keeps_f32_tolerance_where_tf32_does_not(s, causal):
+    """The tensor-core forward's arithmetic on one head at D = 64: with
+    three TF32 passes a product its out and lse hold the card's f32
+    tolerance (rtol = atol = 1e-4) against the plain version, and with one
+    pass they do not, erring at least 10x more."""
+    q, k, v = _t(*_qkv(b=1, s=s, h=1, d=64, seed=11))
+    want_out, want_lse = fa.fwd_reference(q, k, v, causal)
+    want = (want_out[0, :, 0], want_lse[0, 0])
+    heads = [t[0, :, 0] for t in (q, k, v)]
+    errs, close = {}, {}
+    for passes in (3, 1):
+        got = _emulated_forward(*heads, causal, passes)
+        errs[passes] = max(float((g - w).abs().max())
+                           for g, w in zip(got, want))
+        close[passes] = all(torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                            for g, w in zip(got, want))
+        if passes == 3:
+            for g, w, name in zip(got, want, ("out", "lse")):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
+                                           msg=name)
+    print(f"max abs error against the plain version: 3xTF32 {errs[3]:.3g},"
+          f" one TF32 pass {errs[1]:.3g}")
+    assert not close[1], errs
+    assert errs[1] >= 10 * errs[3], errs
+
+
 @pytest.fixture
 def cuda_device():
     """Decided inside the test, never at import (the xdist workers must
@@ -296,6 +361,25 @@ def test_backward_kernels_scalar_copy_path_on_card(cuda_device):
     want_dq = fa.bwd_dq_reference(q, k, v, do, lse, delta, True)
     for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_forward_kernel_scalar_copy_path_on_card(cuda_device):
+    """q, k, v whose rows are not 16-byte aligned (views one element into a
+    buffer) take the forward kernel's scalar copy path, and its out and
+    lse agree with the plain version."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    b, s, h, d = 2, 200, 4, 64
+    q, k, v = (torch.randn(b * s * h * d + 1, generator=gen,
+                           device=cuda_device)[1:].view(b, s, h, d)
+               for _ in range(3))
+    assert not fa.takes_async_copies(q, k, v)
+    for causal in (True, False):
+        out, lse = fa.flash_fwd(q, k, v, causal)
+        want_out, want_lse = fa.fwd_reference(q, k, v, causal)
+        torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
