@@ -34,17 +34,22 @@
    the kernels and with SDPA as ``attn_fn``;
 7. runs one small transformer round on the card and on the CPU from the
    same weights (TF32 off) and compares the parameters;
-8. holds the int8 quantize and dequantize kernels (the dequantize also
-   with a minuend: top-k's error-feedback residual) against their plain
-   versions on the card, bit for bit, at the CNN's D = 1,206,590, at the
-   top-k survivors' k = 60,330 and at edge shapes (D in {1, 511, 512, 513,
-   2570}, an all-zero block, values spanning 1e-30..1e30, random bits with
-   the top bit set, NaN and infinite blocks, misaligned views for the
-   scalar paths), and times kernels and plain versions;
+8. holds the int8 quantize kernel (also with its residual output, top-k's
+   error-feedback residual in the same launch) and the dequantize kernel
+   (also with a minuend) against their plain versions on the card, bit for
+   bit, at the CNN's D = 1,206,590, at the top-k survivors' k = 60,330 and
+   at edge shapes (D in {1, 511, 512, 513, 2570}, an all-zero block,
+   values spanning 1e-30..1e30, random bits with the top bit set, NaN and
+   infinite blocks, misaligned views at D and k for the scalar paths),
+   checks that torch.mul on the zero-padded [rows, 512] layout gives the
+   dequantize's bits, and times kernels, plain versions, that library
+   call, an int8 -> f32 copy_ and an empty kernel (the floor of one CUDA
+   graph node) at D and k;
 9. drives the cross-silo path through ``main_fedavg.main --backend
    inproc``: 2 rounds of ``--compression none``, then 5 rounds each of
    ``delta_int8`` and ``topk_ef_int8:0.05`` of the FEMNIST CNN over 10
-   silos, checks both kernels' launch counts against the schedule, that the
+   silos, checks both kernels' launch counts against the schedule (54 / 94
+   under each: a top-k encode is one quantize launch), that the
    test loss fell, and the uplink frames' array bytes, and prints rounds/s,
    the codec and fold times and the wire bytes a round against ``none``;
 10. runs one cross-silo LR round on the card and on the CPU from the same
@@ -810,12 +815,31 @@ def _quant_work(d):
     """Bytes each kernel must move for a ``d``-vector (each input read
     once, each output written once) and its f32 operations (about 10 a
     value to quantize: abs, max, divide, shift, convert, scale, floor,
-    subtract, compare, add and the clip; one to dequantize, two with a
-    minuend, the residual of top-k's error feedback)."""
+    subtract, compare, add and the clip, and 2 more for the residual; one
+    to dequantize, two with a minuend, the residual of top-k's error
+    feedback)."""
     blocks = -(-d // 512)
-    return {"quant": (10 * d, 4 * d + 4 * d + d + 4 * blocks),
+    quant_bytes = 4 * d + 4 * d + d + 4 * blocks
+    return {"quant": (10 * d, quant_bytes),
+            "quant_res": (12 * d, quant_bytes + 4 * d),
             "dequant": (d, d + 4 * blocks + 4 * d),
             "dequant_sub": (2 * d, d + 4 * blocks + 4 * d + 4 * d)}
+
+
+def _padded_int8(q, rows):
+    """``q`` zero-padded to ``[rows, 512]``, the TPU wrapper's layout."""
+    import torch
+    qp = torch.zeros(rows * 512, dtype=torch.int8, device=q.device)
+    qp[:q.numel()] = q
+    return qp.view(rows, 512)
+
+
+def _library_dequant(qp, scales):
+    """One PyTorch call computing the dequantize on the padded layout: the
+    int8 -> f32 cast is exact and the product rounds once, so its bits are
+    the kernel's."""
+    import torch
+    return torch.mul(qp, scales[:, None])
 
 
 def phase_quant_vs_plain():
@@ -846,12 +870,15 @@ def phase_quant_vs_plain():
              ("wide_range", d_cnn, "wide", 0),
              ("top_bit_set", 70_000, "top_bit", 0),
              ("nan_inf", 2570, "nan_inf", 0),
-             ("scalar_path", d_cnn, "normal", 1)]
+             ("scalar_path", d_cnn, "normal", 1),
+             ("scalar_path_k", SILO_K, "normal", 1)]
     cases += [(f"d{d}", d, "normal", 0) for d in (1, 511, 512, 513, 2570)]
     checks, max_abs = [], {"quant": 0.0, "dequant": 0.0}
     for name, d, kind, offset in cases:
         x, bits = inputs(d, kind, offset)
         q, s = tq.quantize_int8(x, bits)
+        # the fused error-feedback residual, from the quantize kernel
+        fq, fs, fres = tq.quantize_int8(x, bits, residual=True)
         want_q, want_s = tq.quantize_int8_reference(x, bits)
         q_in = torch.empty(d + offset, dtype=torch.int8, device=dev)[offset:]
         q_in.copy_(want_q)
@@ -860,43 +887,76 @@ def phase_quant_vs_plain():
         # the error-feedback residual of the kept values: x - q * scale
         res = tq.dequantize_int8(q_in, want_s, d, subtract_from=x)
         want_res = tq.dequantize_int8_reference(want_q, want_s, x)
+        lib_out = _library_dequant(_padded_int8(want_q, tq.num_blocks(d)),
+                                   want_s).view(-1)[:d]
         vec = tq.takes_vec_paths(x, bits, q_in, out)
         vec_res = tq.takes_vec_paths(x, bits, q_in, res, x)[1]
+        vec_fused = tq.takes_vec_paths(x, bits, fq, out, residual=fres)[0]
         torch.cuda.synchronize()
         ok = {"q": _same_bits(q, want_q), "scales": _same_bits(s, want_s),
               "out": _same_bits(out, want_out),
-              "residual": _same_bits(res, want_res)}
+              "residual": _same_bits(res, want_res),
+              "fused_q": _same_bits(fq, want_q),
+              "fused_scales": _same_bits(fs, want_s),
+              "fused_residual": _same_bits(fres, want_res),
+              "library_out": _same_bits(lib_out, want_out)}
         if not all(ok.values()):
             raise AssertionError(f"{name} D={d}: kernel differs from the "
                                  f"plain version in {ok}")
-        if vec != (offset == 0, offset == 0) or vec_res != (offset == 0):
-            raise AssertionError(f"{name}: 16-byte paths {vec} {vec_res}")
+        if (vec != (offset == 0, offset == 0) or vec_res != (offset == 0)
+                or vec_fused != (offset == 0)):
+            raise AssertionError(f"{name}: vector paths {vec} {vec_res} "
+                                 f"{vec_fused}")
         if kind == "nan_inf" and not (
                 torch.isnan(s[0]) and torch.isinf(s[2:4]).all()
                 and (q[:512] == 0).all() and torch.isnan(out[:512]).all()
-                and torch.isnan(out[1024:2048]).all()):
+                and torch.isnan(out[1024:2048]).all()
+                and torch.isnan(fres[:512]).all()
+                and torch.isnan(fres[1024:2048]).all()):
             raise AssertionError("a NaN or inf block did not dequantize "
                                  "to NaN")
-        max_abs["quant"] = max(max_abs["quant"], _max_abs(q, want_q))
+        max_abs["quant"] = max(max_abs["quant"], _max_abs(q, want_q),
+                               _max_abs(fq, want_q))
         max_abs["dequant"] = max(max_abs["dequant"], _max_abs(out, want_out),
-                                 _max_abs(res, want_res))
-        checks.append({"case": name, "d": d, "vec": list(vec) + [vec_res],
+                                 _max_abs(res, want_res),
+                                 _max_abs(fres, want_res))
+        checks.append({"case": name, "d": d,
+                       "vec": list(vec) + [vec_res, vec_fused],
                        "bit_exact": True})
-        log(f"quantize/dequantize == plain, bit for bit, at {name} D={d}"
-            f"{' (scalar paths)' if offset else ''}")
+        log(f"quantize (and its fused residual), dequantize == plain, bit "
+            f"for bit, at {name} D={d}{' (scalar paths)' if offset else ''}")
 
-    # timing at the path's two shapes: 6 input sets at D (65 MB, beyond
-    # the 50 MB L2), 20 at k; kernels and plain versions in CUDA graphs
-    timing = {}
+    # timing at the path's two shapes: 6 input sets at D (65 MB of x and
+    # bits, beyond the 50 MB L2; the dequantize's 6 x 1.2 MB of int8 stay
+    # in it), 20 at k; kernels and plain versions in CUDA graphs. Beside
+    # them the floor of one graph node (an empty kernel), PyTorch's
+    # int8 -> f32 copy (the dequantize's bytes through an elementwise
+    # pass) and the dequantize's library call (torch.mul on the padded
+    # [rows, 512] layout)
+    lib = tq._kernel()
+    iters = 200
+    floor_ms = cuda_time_ms(lambda: lib.fedml_empty_kernel(
+        torch.cuda.current_stream().cuda_stream), [()], iters)
+    log(f"empty kernel (the floor of one graph node): {floor_ms:.5f} ms")
+    timing = {"floor_ms": floor_ms}
     for label, d, sets in (("cnn_delta", d_cnn, 6),
                            ("topk_survivors", SILO_K, 20)):
         qargs = [inputs(d) for _ in range(sets)]
         dargs = [tq.quantize_int8_reference(x, b) + (d,) for x, b in qargs]
         sargs = [a + (x,) for a, (x, _) in zip(dargs, qargs)]
-        iters = 200
+        rows = tq.num_blocks(d)
+        padded = [(_padded_int8(q, rows), s) for q, s, _ in dargs]
+        copies = [(q, torch.empty(d, device=dev)) for q, _, _ in dargs]
+
+        def plain_fused(x, b):
+            q, s = tq.quantize_int8_reference(x, b)
+            return q, s, tq.dequantize_int8_reference(q, s, x)
         t = {"quant": (cuda_time_ms(tq.quantize_int8, qargs, iters),
                        cuda_time_ms(tq.quantize_int8_reference, qargs,
                                     iters)),
+             "quant_res": (cuda_time_ms(
+                 lambda x, b: tq.quantize_int8(x, b, residual=True), qargs,
+                 iters), cuda_time_ms(plain_fused, qargs, iters)),
              "dequant": (cuda_time_ms(tq.dequantize_int8, dargs, iters),
                          cuda_time_ms(lambda q, s, d:
                                       tq.dequantize_int8_reference(q, s),
@@ -905,8 +965,12 @@ def phase_quant_vs_plain():
                              cuda_time_ms(lambda q, s, d, x:
                                           tq.dequantize_int8_reference(
                                               q, s, x), sargs, iters))}
+        library_ms = cuda_time_ms(_library_dequant, padded, iters)
+        copy_ms = cuda_time_ms(lambda q, o: o.copy_(q), copies, iters)
         work = _quant_work(d)
-        timing[label] = {}
+        timing[label] = {"library_ms": library_ms, "copy_ms": copy_ms}
+        log(f"D={d}: torch.mul on [{rows}, 512] (the dequantize's library "
+            f"call) {library_ms:.5f} ms, int8 -> f32 copy_ {copy_ms:.5f} ms")
         for kern, (ms, plain_ms) in t.items():
             ops, nbytes = work[kern]
             t_bytes = nbytes / HBM_BYTES_PER_S
@@ -926,16 +990,14 @@ def _silo_launches(rounds, silos, policy):
     """Launches the schedule implies: one quantize per reply and per
     compressed broadcast (rounds 1..R-1); one dequantize for the server's
     decode of each reply, and per compressed broadcast one for the
-    server's mirror and one for each silo's apply. Top-k + int8 adds one
-    dequantize per encode (each reply and each compressed broadcast), the
-    error-feedback residual of the kept values (ops/sparsify.py). At 5
-    rounds and 10 silos: 54 / 94, and 54 / 148 under top-k."""
+    server's mirror and one for each silo's apply. Under top-k + int8 the
+    quantize launch also writes the error-feedback residual of the kept
+    values (ops/sparsify.py), so an encode launches no dequantize. At 5
+    rounds and 10 silos: 54 / 94 under both compressed policies."""
     if policy == "none":
         return {"quant": 0, "dequant": 0}
     encodes = rounds * silos + rounds - 1
     dequant = rounds * silos + (rounds - 1) * (silos + 1)
-    if policy.startswith("topk_ef_int8"):
-        dequant += encodes
     return {"quant": encodes, "dequant": dequant}
 
 
@@ -1120,9 +1182,11 @@ def main() -> None:
             "bound_ms_f32": t["bound_ms_f32"],
             "bound_ms_3xtf32": t["bound_ms_3xtf32"],
             "bound_ms_tf32": t["bound_ms_tf32"]})
+    qt = record["quant"]["timing"]
     for kern, name, line in (("quant", "quantize_int8", 26),
                              ("dequant", "dequantize_int8", 40)):
-        t = record["quant"]["timing"]["cnn_delta"][kern]
+        t, tk = qt["cnn_delta"][kern], qt["topk_survivors"][kern]
+        sub = "quant_res" if kern == "quant" else "dequant_sub"
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fedml_tpu_torch/csrc/quantize.cu",
@@ -1131,11 +1195,15 @@ def main() -> None:
             "max_abs_err": record["quant"]["max_abs_err"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
-            "ms_at_k": record["quant"]["timing"]["topk_survivors"][kern][
-                "ms"]})
-    kernels[-1]["ms_residual_at_k"] = record["quant"]["timing"][
-        "topk_survivors"]["dequant_sub"]["ms"]
+            "library_ms": (qt["cnn_delta"]["library_ms"]
+                           if kern == "dequant" else None),
+            "ms_at_k": tk["ms"], "bound_ms_at_k": tk["bound_ms"],
+            "ms_residual_at_k": qt["topk_survivors"][sub]["ms"],
+            "bound_ms_residual_at_k": qt["topk_survivors"][sub]["bound_ms"],
+            "floor_ms": qt["floor_ms"]})
+    kernels[-1]["library_ms_at_k"] = qt["topk_survivors"]["library_ms"]
+    kernels[-1]["copy_ms"] = qt["cnn_delta"]["copy_ms"]
+    kernels[-1]["copy_ms_at_k"] = qt["topk_survivors"]["copy_ms"]
     kernels = {"kernels": kernels}
     with open(os.path.join(ROOT, "runs", "chip_smoke", "record.json"),
               "w") as f:

@@ -10,7 +10,10 @@ On a CUDA tensor, :func:`quantize_int8` and :func:`dequantize_int8` launch
 the hand-written Hopper kernels in ``csrc/quantize.cu`` (the counterparts
 of the Pallas kernels ``_quant_kernel`` and ``_dequant_kernel``); on a CPU
 tensor they run the plain versions :func:`quantize_int8_reference` and
-:func:`dequantize_int8_reference`. There is no fallback between the two: a
+:func:`dequantize_int8_reference`. ``quantize_int8(..., residual=True)``
+also returns the quantization error ``x - dequantize(q)`` (rounded once),
+from the quantize kernel's registers: top-k's error feedback encodes in
+one launch. There is no fallback between the two: a
 CUDA tensor launches the kernel or raises. Both routes are bit-exact
 against the TPU kernels: the scale is ``max(absmax, 1e-12) * f32(1/127)``
 (XLA turns the TPU kernel's ``/ 127.0`` into that multiply), ``x / scale``
@@ -42,11 +45,13 @@ def _kernel():
     would otherwise pass each pointer as a 32-bit int)."""
     lib = load_library("quantize").lib
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.fedml_quantize_int8.argtypes = [p, p, p, p, i64, p]
+    lib.fedml_quantize_int8.argtypes = [p, p, p, p, p, i64, p]
     lib.fedml_quantize_int8.restype = ctypes.c_int
     lib.fedml_dequantize_int8.argtypes = [p, p, p, p, i64, p]
     lib.fedml_dequantize_int8.restype = ctypes.c_int
-    lib.fedml_quantize_int8_is_vec.argtypes = [p, p, p]
+    lib.fedml_empty_kernel.argtypes = [p]
+    lib.fedml_empty_kernel.restype = ctypes.c_int
+    lib.fedml_quantize_int8_is_vec.argtypes = [p, p, p, p]
     lib.fedml_quantize_int8_is_vec.restype = ctypes.c_int
     lib.fedml_dequantize_int8_is_vec.argtypes = [p, p, p]
     lib.fedml_dequantize_int8_is_vec.restype = ctypes.c_int
@@ -130,34 +135,42 @@ def dequantize_int8_reference(values: torch.Tensor, scales: torch.Tensor,
             - values.double() * per_value.double()).float()
 
 
-def quantize_int8(x: torch.Tensor, bits: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, bits: torch.Tensor,
+                  residual: bool = False) -> Tuple[torch.Tensor, ...]:
     """Quantize a flat f32 vector to ``(int8 values [D], f32 scales
     [ceil(D/512)])`` with stochastic rounding from ``bits`` (one uint32 a
-    value, as int32 or uint32). A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel, counted in ``quantize_int8.launches``.
-    """
+    value, as int32 or uint32). With ``residual=True`` it returns ``(q,
+    scales, x - dequantize(q))`` instead, the error rounded once, as
+    :func:`dequantize_int8` with ``subtract_from=x`` computes it. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (one
+    launch either way), counted in ``quantize_int8.launches``."""
     bits = _check_quant_inputs(x, bits)
     if x.device.type == "cpu":
-        return quantize_int8_reference(x, bits)
+        q, scales = quantize_int8_reference(x, bits)
+        if residual:
+            return q, scales, dequantize_int8_reference(q, scales, x)
+        return q, scales
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     x, bits = x.contiguous(), bits.contiguous()
     d = x.numel()
     q = torch.empty(d, dtype=torch.int8, device=x.device)
     scales = torch.empty(num_blocks(d), dtype=torch.float32, device=x.device)
+    res = torch.empty_like(x) if residual else None
+    out = (q, scales, res) if residual else (q, scales)
     if d == 0:
-        return q, scales
+        return out
     lib = _kernel()
     with torch.cuda.device(x.device):
         rc = lib.fedml_quantize_int8(
             x.data_ptr(), bits.data_ptr(), q.data_ptr(), scales.data_ptr(),
-            d, torch.cuda.current_stream(x.device).cuda_stream)
+            None if res is None else res.data_ptr(), d,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("quantize kernel launch failed: "
                            + lib.fedml_cuda_error_string(rc).decode())
     quantize_int8.launches += 1
-    return q, scales
+    return out
 
 
 quantize_int8.launches = 0
@@ -216,14 +229,17 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, d: int,
 dequantize_int8.launches = 0
 
 
-def takes_vec_paths(x, bits, q, out, minuend=None) -> Tuple[bool, bool]:
-    """Whether the quantize kernel reads ``x``/``bits`` and writes ``q``,
-    and the dequantize kernel reads ``q`` (and ``minuend``) and writes
-    ``out``, with 16-byte accesses."""
+def takes_vec_paths(x, bits, q, out, minuend=None,
+                    residual=None) -> Tuple[bool, bool]:
+    """Whether the quantize kernel reads ``x``/``bits`` and writes ``q``
+    (and ``residual``), and the dequantize kernel reads ``q`` (and
+    ``minuend``) and writes ``out``, with vector accesses; otherwise each
+    takes its scalar path."""
     lib = _kernel()
     return (bool(lib.fedml_quantize_int8_is_vec(
                 x.data_ptr(), _as_int32_bits(bits).data_ptr(),
-                q.data_ptr())),
+                q.data_ptr(),
+                None if residual is None else residual.data_ptr())),
             bool(lib.fedml_dequantize_int8_is_vec(
                 q.data_ptr(), None if minuend is None else minuend.data_ptr(),
                 out.data_ptr())))

@@ -86,11 +86,12 @@ def topk_quantize(x: torch.Tensor, bits: torch.Tensor, k: int,
     dropped entries keep their full value, and each kept slot becomes
     ``0.0 + (val - q * scale)``, the add of the JAX package's
     ``residual.at[idx].add`` (it turns a -0.0 error into +0.0).
-    ``val - q * scale`` comes from the dequantize kernel, rounded once, as
-    XLA fuses the JAX package's ``vals - dequantize(q)``."""
+    ``val - q * scale`` comes from the quantize kernel itself, in the same
+    launch, rounded once, as XLA fuses the JAX package's ``vals -
+    dequantize(q)``."""
     idx, vals, residual = topk_sparsify(x, k, inplace=inplace)
-    q, scales = quantize_int8(vals, bits)
-    residual[idx.long()] += dequantize_int8(q, scales, k, subtract_from=vals)
+    q, scales, err = quantize_int8(vals, bits, residual=True)
+    residual[idx.long()] += err
     return idx, q, scales, residual
 
 

@@ -21,6 +21,8 @@ from fedml_tpu.comm.policy import resolve_compression as jax_resolve
 from fedml_tpu.ops.quantize import _pad_rows
 from fedml_tpu.ops.sparsify import topk_quantize as jax_topk_quantize
 from fedml_tpu_torch.comm import compression as tc
+from fedml_tpu_torch.ops import quantize as tq
+from fedml_tpu_torch.ops import sparsify as tsp
 from fedml_tpu_torch.comm import serialization
 from fedml_tpu_torch.comm.policy import (ENV_VAR, CompressionPolicy,
                                          parse_policy, resolve_compression)
@@ -93,6 +95,27 @@ def test_topk_quantize_kept_signed_zero_becomes_plus_zero():
     *_, res = topk_quantize(torch.from_numpy(x), jax_bits(key, 5), 5)
     assert same(res, jres)
     assert not np.signbit(res.numpy()).any()
+
+
+def test_topk_quantize_encodes_in_one_quantize_call(monkeypatch):
+    """The kept values' quantization error comes from the quantize call
+    itself (``residual=True``): an encode runs no dequantize."""
+    calls = []
+
+    def quantize(*args, **kwargs):
+        calls.append(kwargs)
+        return tq.quantize_int8(*args, **kwargs)
+
+    def dequantize(*args, **kwargs):
+        raise AssertionError("topk_quantize ran a dequantize")
+    monkeypatch.setattr(tsp, "quantize_int8", quantize)
+    monkeypatch.setattr(tsp, "dequantize_int8", dequantize)
+    x = planted(3000, seed=150)
+    key = jax.random.key(150)
+    *_, jres = jax_topk_quantize(jnp.asarray(x), key, 150, interpret=True)
+    *_, res = topk_quantize(torch.from_numpy(x), jax_bits(key, 150), 150)
+    assert calls == [{"residual": True}]
+    assert same(res, jres)
 
 
 def test_k_for_and_densify():

@@ -8,6 +8,7 @@ as the JAX wrapper draws them (``jax.random.bits(key, (rows + row_pad,
 kernels against the plain versions, bit for bit, and skip without a card.
 """
 
+import functools
 from fractions import Fraction
 
 import jax
@@ -213,6 +214,169 @@ def test_dequantize_with_a_minuend_rounds_once():
         assert got[i].view(np.int32) == np.float32(want).view(np.int32), i
 
 
+@functools.partial(jax.jit, static_argnames=("d",))
+def _jax_quantize_with_residual(x, key, d):
+    """JAX's quantize and ``x - dequantize_int8(q, scales, d)`` in one jit,
+    as the JAX package's ``topk_quantize`` composes them."""
+    q, s = jax_quantize(x, key, interpret=True)
+    return q, s, x - jax_dequantize(q, s, d, interpret=True)
+
+
+def _residual_roundings(x, q, s):
+    """``x - q * scale`` rounded once (through f64, exact but for the case
+    ``dequantize_int8_reference`` documents) and rounded twice (the product
+    first, then the difference), as f32 bit patterns."""
+    per = np.repeat(np.asarray(s), tq.BLOCK)[:x.size]
+    q = np.asarray(q)
+    once = (x.astype(np.float64)
+            - q.astype(np.float64) * per.astype(np.float64)).astype(
+                np.float32)
+    with np.errstate(invalid="ignore"):
+        twice = x - q.astype(np.float32) * per
+    return once.view(np.int32), twice.view(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide_range"])
+@pytest.mark.parametrize("d", [1, 511, 512, 513, 2570, 60_330])
+def test_fused_residual_matches_jax(d, kind):
+    """``quantize_int8(..., residual=True)`` returns JAX's ``(q, scales)``
+    bit for bit and the residual rounded once. XLA's CPU backend fuses
+    JAX's ``x - dequantize(q)`` into one rounding at the smaller sizes
+    (bit-identical here up to D = 2570), not at D = 60,330, where it
+    rounds the product first: there the two differ only where JAX's value
+    is that double rounding."""
+    x = values(kind, d, seed=d + 1)
+    key = jax.random.key(d + (3 if kind == "normal" else 5))
+    bits = jax_bits(key, d)
+    if d >= 8:
+        assert (bits >> 31).any()  # the top bit is exercised
+    jq, js, jres = _jax_quantize_with_residual(jnp.asarray(x), key, d)
+    q, s, res = tq.quantize_int8(torch.from_numpy(x), as_bits(bits),
+                                 residual=True)
+    assert same_bits(q.numpy(), jq) and same_bits(s.numpy(), js)
+    once, twice = _residual_roundings(x, jq, js)
+    got, want = res.numpy().view(np.int32), np.asarray(jres).view(np.int32)
+    assert (got == once).all()
+    assert ((got == want) | (want == twice)).all()
+    if d <= 2570:
+        assert same_bits(res.numpy(), jres)
+    # the residual is what the dequantize computes from a minuend
+    assert same_bits(res.numpy(), tq.dequantize_int8(
+        q, s, d, subtract_from=torch.from_numpy(x)).numpy())
+
+
+def test_fused_residual_keeps_nan_and_inf_blocks():
+    """A NaN or infinite block has a NaN residual (its scale is NaN or
+    infinite and its q 0); the other blocks' residuals are JAX's, bit for
+    bit. JAX's int8 codes in such blocks are undefined (the cast of NaN),
+    so only the other blocks' codes are compared."""
+    x = _nan_inf_input()
+    d = x.numel()
+    key = jax.random.key(9)
+    jq, js, jres = _jax_quantize_with_residual(jnp.asarray(x.numpy()), key,
+                                               d)
+    q, s, res = tq.quantize_int8(x, as_bits(jax_bits(key, d)),
+                                 residual=True)
+    bad = torch.zeros(d, dtype=torch.bool)
+    for b in (0, 2, 3):
+        bad[512 * b:512 * (b + 1)] = True
+    assert torch.isnan(res[bad]).all()
+    keep = (~bad).numpy()
+    assert same_bits(q.numpy()[keep], np.asarray(jq)[keep])
+    assert same_bits(np.isnan(s.numpy()), np.isnan(np.asarray(js)))
+    assert same_bits(s.numpy()[1:2], np.asarray(js)[1:2])
+    assert same_bits(res.numpy()[keep], np.asarray(jres)[keep])
+
+
+# -- the launchers' tiling, mirrored from csrc/quantize.cu -------------------
+
+TILING_DS = [1, 511, 512, 513, 2570, 60_330, 1_206_590]
+SMS = 132  # the H100's SMs
+
+
+def dequant_plan(d, ctas_per_sm, sms=SMS):
+    """``dequant_grid``, ``even_share`` and ``dequant_kernel``'s vector
+    path: the grid, each block's run of whole scale blocks, each lane's
+    accesses (warp w of a block takes the run's scale blocks w, w + 4, ...;
+    lane l reads the char4 of int8 at 128 j + 4 l, j < 4, and writes the
+    float4 of f32 and reads the minuend's there), and the value range the
+    grid's last block converts one value at a time. Returns ``(grid, runs,
+    accesses, scalar)``, each access ``(array, byte offset, bytes)``."""
+    whole = d // tq.BLOCK
+    grid = max(1, min(sms * ctas_per_sm, whole))
+    runs, accesses = [], []
+    base, extra = divmod(whole, grid)
+    for c in range(grid):
+        count = base + (c < extra)
+        first = c * base + min(c, extra)
+        runs.append((first, count))
+        for w in range(4):
+            for blk in range(first + w, first + count, 4):
+                for j in range(4):
+                    for lane in range(32):
+                        i = blk * tq.BLOCK + 128 * j + 4 * lane
+                        accesses += [("q", i, 4), ("minuend", 4 * i, 16),
+                                     ("out", 4 * i, 16)]
+    return grid, runs, accesses, (whole * tq.BLOCK, d)
+
+
+def quant_plan(d):
+    """``fedml_quantize_int8`` and ``quant_kernel``: one block of 128
+    threads per scale block, 4 consecutive values a thread; the vector
+    accesses of the full blocks (16-byte x, bits and residual, a char4 of
+    q) and the masked values of the ragged one. Returns ``(grid, threads,
+    accesses)``: each thread's value range and each vector access as
+    ``(array, byte offset, bytes)``."""
+    grid = tq.num_blocks(d)
+    threads, accesses = [], []
+    for blk in range(grid):
+        full = (blk + 1) * tq.BLOCK <= d
+        for t in range(128):
+            i = blk * tq.BLOCK + 4 * t
+            threads.append((i, min(i + 4, d)))
+            if full:
+                accesses += [("x", 4 * i, 16), ("bits", 4 * i, 16),
+                             ("res", 4 * i, 16), ("q", i, 4)]
+    return grid, threads, accesses
+
+
+def _covered_once(ranges, d):
+    hits = np.zeros(d, np.int64)
+    for lo, hi in ranges:
+        hits[lo:hi] += 1
+    return (hits == 1).all()
+
+
+@pytest.mark.parametrize("ctas_per_sm", [1, 4])
+@pytest.mark.parametrize("d", TILING_DS)
+def test_dequantize_tiling_covers_d_once_in_aligned_accesses(d,
+                                                              ctas_per_sm):
+    grid, runs, accesses, scalar = dequant_plan(d, ctas_per_sm)
+    assert grid <= SMS * ctas_per_sm
+    counts = [c for _, c in runs]
+    assert max(counts) - min(counts) <= 1  # an even split
+    outs = [(off // 4, off // 4 + 4) for a, off, _ in accesses
+            if a == "out"]
+    assert _covered_once(outs + [scalar], d)
+    # every access is aligned to its size: with 16-byte aligned pointers
+    # the vector path never straddles
+    assert all(off % size == 0 for _, off, size in accesses)
+    # the misaligned path walks the same runs one value at a time, the
+    # grid's last block through to D
+    tiles = [(f * tq.BLOCK, (f + c) * tq.BLOCK) for f, c in runs]
+    assert _covered_once(tiles[:-1] + [(tiles[-1][0], d)], d)
+
+
+@pytest.mark.parametrize("d", TILING_DS)
+def test_quantize_tiling_covers_d_once_in_aligned_accesses(d):
+    grid, threads, accesses = quant_plan(d)
+    assert grid == tq.num_blocks(d)
+    assert _covered_once([r for r in threads if r[0] < r[1]], d)
+    assert all(off % size == 0 for _, off, size in accesses)
+    if d >= tq.BLOCK:  # a full block takes the vector path
+        assert accesses
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -264,3 +428,41 @@ def test_kernels_keep_nan_and_inf_blocks_on_the_card(cuda):
         keep = ~torch.isnan(a)
         assert torch.equal(a[keep].view(torch.int32),
                            b[keep].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 511, 512, 513, 2570, 60_330, 1_206_590])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_residual_equals_plain_version_on_the_card(cuda, d, offset):
+    """The quantize kernel's residual output, bit for bit, on its 16-byte
+    path (offset 0) and its scalar path (offset 1), with random bits whose
+    top bit is set half the time."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + 1)
+    x = torch.randn(d + offset, generator=gen, device=cuda)[offset:]
+    x[: min(d, 512)] *= 1e30
+    bits = tq.random_bits(d + offset, gen)[offset:]
+    q, s, res = tq.quantize_int8(x, bits, residual=True)
+    want_q, want_s = tq.quantize_int8_reference(x, bits)
+    want_res = tq.dequantize_int8_reference(want_q, want_s, x)
+    assert tq.takes_vec_paths(x, bits, q, res, residual=res)[0] == (
+        offset == 0)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q)
+    assert torch.equal(s.view(torch.int32), want_s.view(torch.int32))
+    assert torch.equal(res.view(torch.int32), want_res.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_fused_residual_keeps_nan_and_inf_blocks_on_the_card(cuda):
+    x = _nan_inf_input().to(cuda)
+    bits = torch.zeros(2570, dtype=torch.int32, device=cuda)
+    q, s, res = tq.quantize_int8(x, bits, residual=True)
+    want_q, want_s = tq.quantize_int8_reference(x, bits)
+    want_res = tq.dequantize_int8_reference(want_q, want_s, x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, want_q)
+    assert torch.equal(torch.isnan(res), torch.isnan(want_res))
+    keep = ~torch.isnan(res)
+    assert torch.equal(res[keep].view(torch.int32),
+                       want_res[keep].view(torch.int32))
