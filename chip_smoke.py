@@ -18,6 +18,22 @@
    loss fell, then times further rounds;
 4. runs one logistic-regression round on the card and on the CPU from the
    same weights (TF32 off) and compares the parameters;
+4a. drives the same path through ``main_fedavg.main --fused_rounds 5``
+   (10 rounds, each a replay of a captured CUDA graph of the round with
+   the aggregation kernel inside), checks the kernel's launches (one a
+   round, plus a warm-up and a capture launch a graph) and that the test
+   loss fell; runs the same cohorts through the host loop and a fused
+   block with shuffle and dropout on (cuDNN deterministic) and bounds the
+   difference by 1e-6; then times the host loop and fused blocks (median
+   and spread of three runs of 10 rounds), profiles each (device ms and
+   launch calls a round; the profiler must see one aggregation kernel a
+   fused round, as the driver counts) and prints each graph's capture
+   time and memory pool;
+4b. the same in bf16 off f32 masters (the JAX headline's
+   ``bench_fedavg_cnn_fused_headline``), and one bf16 round against an f32
+   round from the same weights;
+4c. device-sampled fused rounds (cohorts and batch orders drawn on the
+   card): distinct cohorts without replacement, and the test loss falls;
 5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
    their plain versions on the card, at the LM path's shape [4, 2048, 4,
    64] f32 causal and at edge shapes (D = 128 at S = 2048, a ragged S,
@@ -34,6 +50,9 @@
    the kernels and with SDPA as ``attn_fn``;
 7. runs one small transformer round on the card and on the CPU from the
    same weights (TF32 off) and compares the parameters;
+7a. runs 2 rounds of the full-width LM in bf16 (the flash kernels' bf16
+   instances; launches 12 a step), times 3 more, and one small bf16
+   transformer round on the card and on the CPU;
 8. holds the int8 quantize kernel (also with its residual output, top-k's
    error-feedback residual in the same launch) and the dequantize kernel
    (also with a minuend) against their plain versions on the card, bit for
@@ -65,6 +84,7 @@ goes to runs/chip_smoke/record.json, beside the main path's metrics.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -87,6 +107,26 @@ LM = dict(vocab_size=1024, width=256, depth=4, num_heads=4, max_len=2048)
 LM_LR = 0.3
 FLASH_TOL = dict(rtol=1e-4, atol=1e-4)  # f32; bf16 takes 2e-2
 SILO_K = 60_330  # top-k survivors of the CNN's delta at keep-fraction 0.05
+# the main path's flags (FEMNIST CNN, 200 clients, 10 a round, batch 20)
+MAIN_FLAGS = ["--dataset", "femnist_gen", "--client_num_in_total", "200",
+              "--client_num_per_round", "10", "--batch_size", "20",
+              "--epochs", "1", "--lr", "0.1", "--device", "cuda"]
+FUSED_R = 5  # rounds a fused dispatch
+# bf16 against f32 after one main-path round: its relative L2 distance may
+# be at most this multiple of an f32 round's from weights perturbed by
+# 2**-9 (a round of ~17 SGD steps at lr 0.1 moves a bf16-sized error
+# across ReLU and dropout boundaries: both land ~4% apart in a CPU run)
+BF16_VS_F32_FACTOR = 2.0
+# ... and at least this multiple of it: a round that ignored compute_dtype
+# would land next to the f32 round (the card measured 0.375 of it, 0.0081
+# against 0.0216; an f32 round differs from itself only by cuDNN's
+# nondeterministic sums)
+BF16_VS_F32_MIN_FACTOR = 0.125
+# a bf16 transformer round, card against CPU: cuBLAS's and the CPU's bf16
+# products round at other places, as the port and XLA do on the CPU
+# (tests/test_torch_mixed_precision.py, LM: rtol 1e-2, atol 1e-3, there
+# measured 1.4e-4), with twice the room for the flash kernels' bf16 path
+LM_BF16_TOL = dict(rtol=2e-2, atol=2e-3)
 
 
 def log(msg: str) -> None:
@@ -305,10 +345,8 @@ def phase_main_path():
     from fedml_tpu_torch.utils.metrics import read_metrics
 
     rounds = 5
-    flags = ["--dataset", "femnist_gen", "--client_num_in_total", "200",
-             "--client_num_per_round", "10", "--batch_size", "20",
-             "--epochs", "1", "--lr", "0.1", "--comm_round", str(rounds),
-             "--frequency_of_the_test", "4", "--device", "cuda"]
+    flags = MAIN_FLAGS + ["--comm_round", str(rounds),
+                          "--frequency_of_the_test", "4"]
     run_dir = os.path.join(ROOT, "runs", "chip_smoke")
     shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -1141,6 +1179,452 @@ def phase_cross_silo_card_vs_cpu():
     return {"max_abs_diff": diffs}
 
 
+def _main_api_parts():
+    """The main path's dataset, model, task and TrainConfig, from its
+    flags, built once for the phases that drive it through FedAvgAPI."""
+    from fedml_tpu_torch.experiments import main_fedavg
+    args = main_fedavg.add_federated_args(
+        argparse.ArgumentParser()).parse_args(MAIN_FLAGS)
+    ds, model, task = main_fedavg.build_dataset_and_model(args)
+    return ds, model, task, main_fedavg.make_train_config(args)
+
+
+def _main_api(parts, comm_round, freq=10**9, **train):
+    """A FedAvgAPI on the main path's configuration (``train`` overrides
+    fields of its TrainConfig)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    ds, model, task, tc = parts
+    return FedAvgAPI(ds, model, task=task, device="cuda", config=FedAvgConfig(
+        comm_round=comm_round, client_num_per_round=HEADLINE[0],
+        frequency_of_the_test=freq, train=dataclasses.replace(tc, **train)))
+
+
+def _spread(xs):
+    """Median, min and max of repeated measurements."""
+    s = sorted(xs)
+    return {"median": s[len(s) // 2], "min": s[0], "max": s[-1], "runs": xs}
+
+
+def _rounds_per_s(run, rounds, reps=3):
+    """``run()`` (``rounds`` rounds) timed ``reps`` times, synchronized."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out.append(rounds / (time.perf_counter() - t))
+    return _spread(out)
+
+
+def _profile(run, rounds):
+    """``run()`` under torch.profiler: device ms a round (the device's own
+    events), launch calls a round, and the aggregation kernel's launches by
+    name in the device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    device = [e for e in evs if e.device_type == DeviceType.CUDA
+              and dev_us(e) > 0]
+    return {
+        "device_ms_per_round": sum(dev_us(e) for e in device) / 1e3 / rounds,
+        "wmean_kernels": sum(e.count for e in device if "wmean_" in e.key),
+        # device kernels whose names say they compute in bf16 (cuDNN's and
+        # cuBLAS's bf16 convolutions and GEMMs, and the casts)
+        "bf16_kernels": sorted({e.key[:120] for e in device if any(
+            t in e.key.lower() for t in ("bf16", "bfloat16"))}),
+        "launch_calls_per_round": {
+            k: sum(e.count for e in evs if e.key == k) / rounds
+            for k in ("cudaLaunchKernel", "cudaGraphLaunch")}}
+
+
+def _padding_steps(fused, r0):
+    """Device ms a round of a fused block as it runs, and of the same block
+    with every step made padding-only: a gated step runs the same kernels
+    whether its batch is real or not, so the second, over its steps, is
+    one step's cost, and that times the block's padding-only steps is
+    what they cost a round. Each timed by CUDA events, median of 3."""
+    import torch
+    block = fused._block_inputs(r0, FUSED_R)
+    plan = block["plan"]
+    steps, real = plan.has_real.numel(), int(plan.has_real.sum())
+    padded = dict(block, plan=plan._replace(
+        has_real=torch.zeros_like(plan.has_real),
+        emit=torch.zeros_like(plan.emit)))
+
+    def ms(b):
+        out = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fused._run_graph(b, FUSED_R)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / FUSED_R)
+        return sorted(out)[1]
+    block_ms, all_pad_ms = ms(block), ms(padded)
+    pad_ms = all_pad_ms / steps * (steps - real)
+    return {"steps_per_round": steps / FUSED_R,
+            "real_steps_per_round": real / FUSED_R,
+            "block_ms_per_round": block_ms,
+            "all_padding_ms_per_round": all_pad_ms,
+            "padding_ms_per_round": pad_ms,
+            "padding_share": pad_ms / block_ms}
+
+
+def phase_fused_path():
+    """The main path through ``--fused_rounds``, its trajectory against the
+    host loop's, its launches and rounds/s beside the host loop's."""
+    import torch
+    from fedml_tpu_torch.experiments import main_fedavg
+    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.parallel.graphs import CapturedRound
+    from fedml_tpu_torch.utils.metrics import read_metrics
+
+    rounds = 2 * FUSED_R
+    run_dir = os.path.join(ROOT, "runs", "chip_smoke_fused")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    captures = CapturedRound.captures
+    aggregate.weighted_mean_flat.launches = 0
+    t = time.perf_counter()
+    main_fedavg.main(MAIN_FLAGS + [
+        "--comm_round", str(rounds), "--frequency_of_the_test", str(FUSED_R),
+        "--fused_rounds", str(FUSED_R), "--run_dir", run_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = aggregate.weighted_mean_flat.launches
+    captures = CapturedRound.captures - captures
+    # each capture ran one eager warm-up round (one launch) and recorded
+    # one launch that runs at each replay; every fused round is one replay
+    if not captures or launches != rounds + captures:
+        raise AssertionError(f"fused main path: {launches} aggregation "
+                             f"launches in {rounds} rounds and {captures} "
+                             "captures")
+    recs = read_metrics(run_dir)
+    if [r["round"] for r in recs] != [0, FUSED_R, rounds - 1]:
+        raise AssertionError(f"fused eval rounds {[r['round'] for r in recs]}")
+    for r in recs:
+        for k in ("train_loss", "test_loss", "train_loss_local"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"fused round {r['round']}: {k}={r[k]}")
+    if not recs[-1]["test_loss"] < recs[0]["test_loss"]:
+        raise AssertionError(f"fused test loss did not fall: "
+                             f"{recs[0]['test_loss']} -> "
+                             f"{recs[-1]['test_loss']}")
+    log(f"fused main path: {rounds} rounds in dispatches of {FUSED_R}, "
+        f"{captures} captures, {launches} aggregation launches, test loss "
+        f"{recs[0]['test_loss']:.4f} -> {recs[-1]['test_loss']:.4f} (wall "
+        f"{wall:.1f}s with data build, capture and eval)")
+
+    # the same cohorts through the host loop and a fused block, shuffle
+    # and dropout on; cuDNN's deterministic algorithms, so that the two
+    # runs of the same convolutions give the same bits
+    parts = _main_api_parts()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        host, fused_api = (_main_api(parts, FUSED_R) for _ in range(2))
+        for r in range(FUSED_R):
+            host.run_round(r)
+        fused_api.fused_rounds().run_rounds(0, FUSED_R)
+        diff = max(float((host.variables[k] - fused_api.variables[k])
+                         .abs().max()) for k in host.variables)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if not diff <= 1e-6:
+        raise AssertionError(f"fused block vs host loop: max abs diff {diff}")
+    log(f"fused block == host loop over {FUSED_R} rounds (shuffle, dropout "
+        f"on): max abs param diff {diff:.3g} (bound 1e-6)")
+
+    return {"launches": launches, "captures": captures, "evals": recs,
+            "wall_s": wall, "fused_vs_host_max_abs_diff": diff,
+            "timing": _host_vs_fused_timing(parts)}
+
+
+def _host_vs_fused_timing(parts, compute_dtype=None, reps=3):
+    """rounds/s of the host loop and of fused blocks (median and spread of
+    ``reps`` runs over the same rounds), each round's launches and device
+    time under the profiler, the graphs' capture time and pool bytes."""
+    import torch
+    from fedml_tpu_torch.ops import aggregate
+
+    first, timed = 2, 2 * FUSED_R
+    span = range(first, first + timed)
+    host = _main_api(parts, first + timed, compute_dtype=compute_dtype)
+    for r in range(first):
+        host.run_round(r)
+    host_rps = _rounds_per_s(lambda: [host.run_round(r) for r in span],
+                             timed, reps)
+    host_prof = _profile(lambda: [host.run_round(r) for r in span[:2]], 2)
+
+    api = _main_api(parts, first + timed, compute_dtype=compute_dtype)
+    fused = api.fused_rounds()
+
+    def blocks():
+        for r in range(first, first + timed, FUSED_R):
+            fused.run_rounds(r, FUSED_R)
+    blocks()  # captures the graph of every pad bucket the rounds use
+    fused_rps = _rounds_per_s(blocks, timed, reps)
+    before = aggregate.weighted_mean_flat.launches
+    fused_prof = _profile(lambda: fused.run_rounds(first, FUSED_R), FUSED_R)
+    driver = aggregate.weighted_mean_flat.launches - before
+    if not fused_prof["wmean_kernels"] == driver == FUSED_R:
+        raise AssertionError(
+            f"a profiled fused block of {FUSED_R} rounds: the profiler saw "
+            f"{fused_prof['wmean_kernels']} aggregation kernels, the driver "
+            f"counted {driver}")
+    # a new driver's first block, under the profiler: its capture records
+    # the kernel without running it, its warm-up round runs it once
+    fresh = api.fused_rounds()
+    before = aggregate.weighted_mean_flat.launches
+    capture_prof = _profile(lambda: fresh.run_rounds(first, FUSED_R),
+                            FUSED_R)
+    counted = aggregate.weighted_mean_flat.launches - before
+    if not (capture_prof["wmean_kernels"] == counted
+            == FUSED_R + len(fresh.graphs)):
+        raise AssertionError(
+            f"a profiled fused block with {len(fresh.graphs)} captures: the "
+            f"profiler saw {capture_prof['wmean_kernels']} aggregation "
+            f"kernels, the driver counted {counted}, {FUSED_R} rounds")
+    padding = _padding_steps(fused, first)
+    bf16 = compute_dtype == "bfloat16"
+    for name, prof in (("host loop", host_prof), ("fused", fused_prof)):
+        if bool(prof["bf16_kernels"]) != bf16:
+            raise AssertionError(
+                f"{compute_dtype or 'f32'} {name}: bf16 kernels on the "
+                f"device: {prof['bf16_kernels'][:8]}")
+    graphs = [{"capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+               "wmean_launches_per_replay":
+                   g.launches.get(aggregate.weighted_mean_flat, 0)}
+              for g in fused.graphs.values()]
+    out = {"rounds_per_s": host_rps, **host_prof,
+           "busy_share": host_prof["device_ms_per_round"]
+           * host_rps["median"] / 1e3,
+           "fused": {"rounds_per_s": fused_rps, **fused_prof,
+                     "busy_share": fused_prof["device_ms_per_round"]
+                     * fused_rps["median"] / 1e3,
+                     "driver_wmean_launches": driver, "graphs": graphs,
+                     "padding_steps": padding,
+                     "with_capture": {
+                         "wmean_kernels": capture_prof["wmean_kernels"],
+                         "driver_wmean_launches": counted,
+                         "captures": len(fresh.graphs)}}}
+    label = compute_dtype or "f32"
+    for name, rec in (("host loop", out), ("fused", out["fused"])):
+        rps = rec["rounds_per_s"]
+        log(f"{label} {name}: {rps['median']:.3f} rounds/s (min "
+            f"{rps['min']:.3f}, max {rps['max']:.3f}, {reps} runs of "
+            f"{timed} rounds); device {rec['device_ms_per_round']:.2f} ms a "
+            f"round, busy {100 * rec['busy_share']:.1f}%; launch calls a "
+            f"round {rec['launch_calls_per_round']}")
+    log(f"{label} fused: the profiler saw {fused_prof['wmean_kernels']} "
+        f"aggregation kernels in {FUSED_R} rounds (the driver counted "
+        f"{driver}); in a block with {len(fresh.graphs)} capture(s), "
+        f"{capture_prof['wmean_kernels']} (the driver counted {counted}); "
+        f"{len(fused_prof['bf16_kernels'])} bf16 kernel names; graphs "
+        "(capture s, pool MiB): "
+        + ", ".join(f"({g['capture_s']:.2f}, {g['pool_bytes'] / 2**20:.0f})"
+                    for g in graphs))
+    log(f"{label} fused: {padding['steps_per_round']:.0f} gated steps a "
+        f"round, {padding['real_steps_per_round']:.0f} of them real; the "
+        f"block {padding['block_ms_per_round']:.2f} ms a round, all steps "
+        f"padding-only {padding['all_padding_ms_per_round']:.2f} ms: the "
+        f"padding-only steps cost {padding['padding_ms_per_round']:.2f} ms "
+        f"a round ({100 * padding['padding_share']:.0f}% of the block)")
+    return out
+
+
+def phase_fused_bf16():
+    """The JAX headline's configuration: the fused main path in bf16 off
+    f32 masters."""
+    import torch
+    from fedml_tpu_torch.experiments import main_fedavg
+    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.utils.metrics import read_metrics
+
+    rounds = 2 * FUSED_R
+    run_dir = os.path.join(ROOT, "runs", "chip_smoke_bf16")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    aggregate.weighted_mean_flat.launches = 0
+    main_fedavg.main(MAIN_FLAGS + [
+        "--comm_round", str(rounds), "--frequency_of_the_test", str(FUSED_R),
+        "--fused_rounds", str(FUSED_R), "--compute_dtype", "bfloat16",
+        "--run_dir", run_dir])
+    torch.cuda.synchronize()
+    launches = aggregate.weighted_mean_flat.launches
+    recs = read_metrics(run_dir)
+    if launches < rounds:
+        raise AssertionError(f"bf16 fused path: {launches} aggregation "
+                             f"launches in {rounds} rounds")
+    if not recs[-1]["test_loss"] < recs[0]["test_loss"]:
+        raise AssertionError(f"bf16 test loss did not fall: "
+                             f"{recs[0]['test_loss']} -> "
+                             f"{recs[-1]['test_loss']}")
+    log(f"bf16 fused main path: {rounds} rounds, {launches} aggregation "
+        f"launches, test loss {recs[0]['test_loss']:.4f} -> "
+        f"{recs[-1]['test_loss']:.4f}")
+
+    # one fused round in bf16 and in f32 from the same weights, beside an
+    # f32 round from weights perturbed by 2**-9 relative noise (the rounding
+    # of one bf16 cast): the round's own sensitivity to bf16-sized error
+    parts = _main_api_parts()
+    apis = [_main_api(parts, 1, compute_dtype=d) for d in ("bfloat16", None)]
+    perturbed = _main_api(parts, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    perturbed.variables = {
+        k: v * (1 + 2.0**-9 * torch.randn(v.shape, generator=gen,
+                                           device="cuda"))
+        for k, v in perturbed.variables.items()}
+    for api in apis + [perturbed]:
+        api.fused_rounds().run_rounds(0, 1)
+
+    def rel_l2(a):
+        num = sum(float(((a.variables[k] - v) ** 2).sum())
+                  for k, v in apis[1].variables.items())
+        den = sum(float((v ** 2).sum()) for v in apis[1].variables.values())
+        return math.sqrt(num / den)
+    diff = max(float((apis[0].variables[k] - v).abs().max())
+               for k, v in apis[1].variables.items())
+    bf16_l2, ref_l2 = rel_l2(apis[0]), rel_l2(perturbed)
+    if not (BF16_VS_F32_MIN_FACTOR * ref_l2 <= bf16_l2
+            <= BF16_VS_F32_FACTOR * ref_l2):
+        raise AssertionError(
+            f"bf16 vs f32 round: relative L2 distance {bf16_l2} outside "
+            f"[{BF16_VS_F32_MIN_FACTOR}, {BF16_VS_F32_FACTOR}] x the "
+            f"perturbed f32 round's {ref_l2}")
+    log(f"one round bf16 vs f32: relative L2 distance {bf16_l2:.4f} (max "
+        f"abs {diff:.3g}); an f32 round from 2**-9-perturbed weights "
+        f"{ref_l2:.4f} (bounds {BF16_VS_F32_MIN_FACTOR}x and "
+        f"{BF16_VS_F32_FACTOR}x)")
+    timing = _host_vs_fused_timing(parts, "bfloat16")
+    return {"launches": launches, "evals": recs,
+            "bf16_vs_f32_max_abs_diff": diff, "bf16_vs_f32_rel_l2": bf16_l2,
+            "perturbed_f32_rel_l2": ref_l2, "timing": timing}
+
+
+def phase_fused_device_mode():
+    """Device sampling: the cohorts and batch orders drawn on the card."""
+    import torch
+    from fedml_tpu_torch.core.sampling import (device_round_key,
+                                               device_sample_clients)
+
+    parts = _main_api_parts()
+    n, k = parts[0].client_num, HEADLINE[0]
+    rounds = 2 * FUSED_R
+    api = _main_api(parts, rounds, freq=rounds - 1)
+    fused = api.fused_rounds(device_sampling=True)
+    cohorts = [device_sample_clients(device_round_key(
+        api.config.seed, torch.tensor(r, device="cuda")), n, k).tolist()
+        for r in range(rounds)]
+    if any(len(set(c)) != k or not 0 <= min(c) <= max(c) < n
+           for c in cohorts) or len({tuple(c) for c in cohorts}) < 2:
+        raise AssertionError(f"device-sampled cohorts {cohorts}")
+    t = time.perf_counter()
+    fused.train(max_rounds_per_dispatch=FUSED_R)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    recs = api.history
+    if not recs[-1]["test_loss"] < recs[0]["test_loss"]:
+        raise AssertionError(f"device mode: test loss did not fall: "
+                             f"{recs[0]['test_loss']} -> "
+                             f"{recs[-1]['test_loss']}")
+    log(f"device-sampled fused rounds: {rounds} rounds, distinct cohorts of "
+        f"{k} without replacement, test loss {recs[0]['test_loss']:.4f} -> "
+        f"{recs[-1]['test_loss']:.4f} (wall {wall:.1f}s with capture and "
+        "eval)")
+    return {"cohorts": cohorts, "evals": recs, "wall_s": wall}
+
+
+def phase_lm_bf16():
+    """An LM round in bf16: the three flash kernels on their bf16 path."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data.synthetic import make_token_federated
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    ds = make_token_federated(client_num=8, vocab_size=1024, seq_len=2048,
+                              sequences_per_client=8, seed=0)
+    rounds, per_round, bsz = 2, 4, 4
+    api = FedAvgAPI(ds, TransformerLM(**LM, attn_fn=fa.make_flash_attention(
+        128, 128)), task="nwp", device="cuda", config=FedAvgConfig(
+            comm_round=rounds + 3, client_num_per_round=per_round,
+            frequency_of_the_test=10**9, train=TrainConfig(
+                epochs=1, batch_size=bsz, lr=LM_LR,
+                compute_dtype="bfloat16")))
+    kernels = (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq)
+    for fn in kernels:
+        fn.launches = 0
+    for r in range(rounds):
+        _, stats = api.run_round(r)
+    torch.cuda.synchronize()
+    launches = dict(zip(("fwd", "dkdv", "dq"),
+                        (fn.launches for fn in kernels)))
+    steps = sum(-(-ds.train_data_local_num_dict[int(c)] // bsz)
+                for r in range(rounds)
+                for c in sample_clients(r, ds.client_num, per_round))
+    depth = LM["depth"]
+    if launches != {"fwd": depth * steps, "dkdv": depth * steps,
+                    "dq": depth * steps}:
+        raise AssertionError(f"bf16 LM: flash launches {launches}, the "
+                             f"schedule implies {depth} each a step over "
+                             f"{steps} steps")
+    if not math.isfinite(float(stats["loss_sum"])):
+        raise AssertionError("bf16 LM round: loss not finite")
+    timed = 3
+    rps = _rounds_per_s(lambda: [api.run_round(r) for r in
+                                 range(rounds, rounds + timed)], timed, 1)
+    tokens = sum(ds.train_data_local_num_dict[int(c)] * 2048
+                 for r in range(rounds, rounds + timed)
+                 for c in sample_clients(r, ds.client_num, per_round)) / timed
+    log(f"bf16 LM: {rounds} rounds, {steps} steps, flash launches "
+        f"{launches} ({3 * depth} a step); {rps['median']:.3f} rounds/s, "
+        f"{rps['median'] * tokens:.0f} training tokens/s")
+
+    # a small transformer round in bf16, card against CPU, same weights
+    small = make_token_federated(client_num=4, vocab_size=64, seq_len=128,
+                                 sequences_per_client=8, seed=1)
+    cfg = FedAvgConfig(comm_round=1, client_num_per_round=4,
+                       prefetch_depth=0, train=TrainConfig(
+                           epochs=1, batch_size=4, lr=0.3, shuffle=False,
+                           compute_dtype="bfloat16"))
+    apis = [FedAvgAPI(small, TransformerLM(
+                vocab_size=64, width=64, depth=2, num_heads=2, max_len=128,
+                attn_fn=fa.make_flash_attention(128, 128)),
+                task="nwp", config=cfg, device=d) for d in ("cuda", "cpu")]
+    for a in apis:
+        a.run_round(0)
+    diff, worst = 0.0, 0.0
+    for k, want in apis[1].variables.items():
+        d = (apis[0].variables[k].cpu() - want).abs()
+        diff = max(diff, float(d.max()))
+        worst = max(worst, float((d - LM_BF16_TOL["atol"]
+                                  - LM_BF16_TOL["rtol"] * want.abs()).max()))
+    if worst > 0:
+        raise AssertionError(f"bf16 transformer round card vs CPU: max abs "
+                             f"diff {diff} outside {LM_BF16_TOL}")
+    log(f"bf16 transformer round, card vs CPU: max abs param diff "
+        f"{diff:.3g} (rtol {LM_BF16_TOL['rtol']}, atol "
+        f"{LM_BF16_TOL['atol']})")
+    return {"launches": launches, "steps": steps, "rounds_per_s": rps,
+            "train_tokens_per_s": rps["median"] * tokens,
+            "card_vs_cpu_max_abs_diff": diff}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1149,9 +1633,13 @@ def main() -> None:
     record["kernel"] = phase_kernel_vs_plain()
     record["main_path"] = phase_main_path()
     record["card_vs_cpu"] = phase_card_vs_cpu()
+    record["fused_path"] = phase_fused_path()
+    record["fused_bf16"] = phase_fused_bf16()
+    record["fused_device_mode"] = phase_fused_device_mode()
     record["flash"] = phase_flash_vs_plain()
     record["lm_path"] = phase_lm_path()
     record["lm_card_vs_cpu"] = phase_lm_card_vs_cpu()
+    record["lm_bf16"] = phase_lm_bf16()
     record["quant"] = phase_quant_vs_plain()
     record["silo_path"] = phase_cross_silo_path()
     record["silo_card_vs_cpu"] = phase_cross_silo_card_vs_cpu()
@@ -1161,6 +1649,8 @@ def main() -> None:
         "source": "fedml_tpu_torch/csrc/aggregate.cu",
         "replaces": "fedml_tpu/ops/aggregate.py:27",
         "launches": record["main_path"]["launches"],
+        "launches_fused": record["fused_path"]["launches"],
+        "launches_fused_bf16": record["fused_bf16"]["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]
@@ -1173,6 +1663,7 @@ def main() -> None:
             "source": "fedml_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
             "launches": record["lm_path"]["launches"][kern],
+            "launches_bf16": record["lm_bf16"]["launches"][kern],
             "max_abs_err": record["flash"]["max_abs_err"][kern],
             "max_abs_err_bf16": record["flash"]["max_abs_err_bf16"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],

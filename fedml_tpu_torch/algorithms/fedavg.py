@@ -17,6 +17,12 @@ round the same padded length, and the async cohort pipeline
 (parallel/prefetch.py) packs and uploads round r+1 while round r runs. On a
 CUDA device the default aggregation is the hand-written kernel's front end
 (ops/aggregate.py); on the CPU it is the plain per-leaf mean.
+
+:class:`FusedRounds` (``api.fused_rounds()``) runs R rounds per dispatch,
+the counterpart of the JAX package's ``lax.scan`` over rounds: on a CUDA
+device each round is one replay of a captured CUDA graph
+(parallel/graphs.py), with the host only filling its input buffers in
+between; on the CPU the same round body runs in a plain loop.
 """
 
 from __future__ import annotations
@@ -28,16 +34,25 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from fedml_tpu_torch.core import pytree as pt
-from fedml_tpu_torch.core.sampling import (eval_subsample, make_generator,
-                                           round_keys, sample_clients)
+from fedml_tpu_torch.core.sampling import (AGG_KEY_SENTINEL,
+                                           device_round_key,
+                                           device_sample_clients,
+                                           eval_subsample, fold32,
+                                           make_generator, round_keys,
+                                           sample_clients)
 from fedml_tpu_torch.data.base import FederatedDataset
 from fedml_tpu_torch.models.common import init_params
-from fedml_tpu_torch.trainer.functional import (TrainConfig,
+from fedml_tpu_torch.parallel.graphs import CapturedRound, GraphCache
+from fedml_tpu_torch.trainer.functional import (BatchSchedule, TrainConfig,
+                                                device_batch_schedule,
                                                 make_batch_schedule,
                                                 make_eval, make_local_train,
                                                 round_lr_scale,
+                                                round_lr_scales,
+                                                stack_schedules,
                                                 validate_accum_steps)
 from fedml_tpu_torch.utils.device import resolve_device, synchronize
 from fedml_tpu_torch.utils.tracing import RoundTimer
@@ -111,7 +126,6 @@ class FedAvgAPI:
         if self.config.pack not in ("cohort", "global"):
             raise ValueError(f"unknown pack policy: {self.config.pack!r}")
         cfg = self.config.train
-        # raises NotImplementedError for the options this slice lacks
         self._local_train = make_local_train(module, task, cfg)
         validate_accum_steps(cfg, dataset.train_data_local_num_dict)
         if aggregate_hook is not None:
@@ -132,8 +146,9 @@ class FedAvgAPI:
         self._n_pad = dataset.padded_len(cfg.batch_size)
 
         # initialize on the CPU from the seed, so every device starts from
-        # the same weights
-        init_params(module, make_generator(self.config.seed))
+        # the same weights (a template an earlier API moved to the card
+        # comes back first)
+        init_params(module.cpu(), make_generator(self.config.seed))
         self.variables = {k: v.detach().clone().to(self.device)
                           for k, v in module.state_dict().items()}
         module.to(self.device)
@@ -166,36 +181,49 @@ class FedAvgAPI:
             return (self._upload(x), self._upload(y), self._upload(mask),
                     self._upload(weights), mask)
 
-    def _round_plan(self, round_idx: int, idxs, mask_host: np.ndarray):
+    def _client_plans(self, round_idx: int, idxs, mask_host: np.ndarray):
         """Per-round host work that depends on the round index: the seed
-        chain and every client's batch schedule, whose row indices go to
-        the device in one copy."""
+        chain and every client's batch schedule, stacked ``[k, steps,
+        ...]`` (numpy). Returns ``(plan, agg_seed)``."""
         cfg = self.config.train
         n_pad = mask_host.shape[1]
         bsz = cfg.batch_size or n_pad
         _, seeds, agg_seed = round_keys(self.config.seed, round_idx, idxs)
-        scheds = [make_batch_schedule(n_pad, cfg.epochs, bsz, cfg.shuffle,
-                                      s, m)
-                  for s, m in zip(seeds, mask_host)]
-        rows = torch.from_numpy(np.stack([s.batch_idx for s in scheds]))
+        plan = stack_schedules([
+            make_batch_schedule(n_pad, cfg.epochs, bsz, cfg.shuffle, s, m,
+                                cfg.accum_steps)
+            for s, m in zip(seeds, mask_host)])
+        return plan, agg_seed
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """An upload that does not wait: pinned and non-blocking on CUDA."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cuda":
-            rows = rows.pin_memory().to(self.device, non_blocking=True)
-        scheds = [s._replace(batch_idx=rows[i]) for i, s in enumerate(scheds)]
-        return seeds, scheds, agg_seed
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _round_plan(self, round_idx: int, idxs, mask_host: np.ndarray):
+        """The round's plan for the host loop: the row indices and the
+        accumulation flags on the device, in one copy each; ``has_real``
+        and the step seeds stay on the host, which skips padding-only steps
+        and hashes dropout's site keys there."""
+        plan, agg_seed = self._client_plans(round_idx, idxs, mask_host)
+        return plan._replace(**{
+            f: self._to_device(getattr(plan, f))
+            for f in ("batch_idx", "emit", "acc_div")}), agg_seed
 
     def _pack_round(self, round_idx: int):
         """The full host side of one round (seeded sampling, pack, upload,
-        seeds and schedules) as a pure function of the round index: the
-        prefetcher's ``produce``. The dataset reference is snapshot once so
-        a mid-run swap can never mix two datasets inside one payload."""
+        schedules) as a pure function of the round index: the prefetcher's
+        ``produce``. The dataset reference is snapshot once so a mid-run
+        swap can never mix two datasets inside one payload."""
         ds = self.dataset
         idxs = sample_clients(round_idx, ds.client_num,
                               self.config.client_num_per_round,
                               delete_client=self.delete_client)
         x, y, mask, w, mask_host = self._pack_cohort(idxs, dataset=ds)
-        seeds, scheds, agg_seed = self._round_plan(round_idx, idxs,
-                                                   mask_host)
-        return ds, idxs, (x, y, mask, w, seeds, scheds, agg_seed)
+        plan, agg_seed = self._round_plan(round_idx, idxs, mask_host)
+        return ds, idxs, (x, y, mask, w, plan, agg_seed)
 
     def _prepare_round(self, round_idx: int):
         """Serial host side of a round, with the full-participation pack
@@ -217,9 +245,8 @@ class FedAvgAPI:
             if len(idxs) == self.dataset.client_num:
                 self._pack_cache = (self.dataset, cohort, packed)
         x, y, mask, w, mask_host = packed
-        seeds, scheds, agg_seed = self._round_plan(round_idx, idxs,
-                                                   mask_host)
-        return idxs, (x, y, mask, w, seeds, scheds, agg_seed)
+        plan, agg_seed = self._round_plan(round_idx, idxs, mask_host)
+        return idxs, (x, y, mask, w, plan, agg_seed)
 
     def _round_prefetcher(self):
         """The cohort prefetcher, or None when the serial path runs: depth
@@ -266,15 +293,20 @@ class FedAvgAPI:
                                 round_bound=self.config.comm_round)
         return idxs, args
 
-    def _round_fn(self, variables, x, y, mask, weights, seeds, scheds,
-                  agg_seed, round_idx: int):
+    def _round_fn(self, variables, x, y, mask, weights, plan: BatchSchedule,
+                  agg_seed, lr_scale=None, gated: bool = False):
         """One round on the device: every client's local training, then
-        the aggregation hook. Returns ``(new_variables, stat totals)``."""
-        lr_scale = round_lr_scale(self.config.train, round_idx)
+        the aggregation hook. Returns ``(new_variables, stat totals)``.
+        ``plan`` is the clients' stacked :class:`BatchSchedule`;
+        ``lr_scale`` a 0-dim f32 tensor or None. ``gated`` runs every step
+        of the schedule behind its device-side gate (the fused driver's
+        capturable body) instead of skipping padding-only steps on the
+        host; the two give the same bits."""
         trained, stats = [], []
-        for i, (seed, sched) in enumerate(zip(seeds, scheds)):
-            v, s = self._local_train(variables, x[i], y[i], mask[i], seed,
-                                     lr_scale=lr_scale, schedule=sched)
+        for i in range(x.shape[0]):
+            v, s = self._local_train(variables, x[i], y[i], mask[i], None,
+                                     lr_scale=lr_scale, schedule=plan.at(i),
+                                     gated=gated)
             trained.append(v)
             stats.append(s)
         totals = {k: torch.stack([s[k] for s in stats]).sum(0)
@@ -285,15 +317,27 @@ class FedAvgAPI:
 
     def run_round(self, round_idx: int):
         self.timer.begin_round(round_idx)
-        idxs, (x, y, mask, weights, seeds, scheds, agg_seed) = \
+        idxs, (x, y, mask, weights, plan, agg_seed) = \
             self._host_round_inputs(round_idx)
         with self.timer.phase("dispatch"):
             self.variables, stats = self._round_fn(
-                self.variables, x, y, mask, weights, seeds, scheds,
-                agg_seed, round_idx)
+                self.variables, x, y, mask, weights, plan, agg_seed,
+                round_lr_scale(self.config.train, round_idx, self.device))
         self.timer.end_round(round_idx,
                              extra={"cohort": [int(i) for i in idxs]})
         return idxs, stats
+
+    def fused_rounds(self, device_sampling: bool = False) -> "FusedRounds":
+        """The fused multi-round driver PAIRED with this API class
+        (subclasses fusing richer server state override
+        ``_fused_driver_cls``; subclasses whose round leaves the device set
+        it to None); construct through here so an API is never mispaired
+        with a driver that drops its server state."""
+        if self._fused_driver_cls is None:
+            raise TypeError(
+                f"{type(self).__name__} cannot fuse rounds: its round has a "
+                "host-side stage that cannot run inside a captured round")
+        return self._fused_driver_cls(self, device_sampling)
 
     # -- the outer loop (reference fedavg_api.py:46-95) ---------------------
     def train(self) -> Dict:
@@ -355,3 +399,278 @@ class FedAvgAPI:
             rec.update(_normalized(self._eval_fn(self.variables, *test),
                                    "test"))
         return rec
+
+
+class FusedRounds:
+    """Multi-round driver: R FedAvg rounds per dispatch, the counterpart of
+    the JAX package's ``FusedRounds`` (``lax.scan`` over rounds). On a CUDA
+    device one round's device work is captured once as a CUDA graph
+    (parallel/graphs.py) and replayed R times, with the aggregation kernel
+    inside it; the host only fills the graph's input buffers between
+    replays and never waits. On a CPU device the same round body runs in a
+    plain loop. Either way the round body is the host loop's
+    (``FedAvgAPI._round_fn``) with every step of the schedule run behind
+    its device-side gate, so the trajectory is the host loop's, bit for
+    bit. Three modes:
+
+    - **block** (partial participation, the default): the R cohorts are
+      drawn on the host with the host loop's ``sample_clients`` (honouring
+      ``delete_client``), packed as one ``[R, k, n_pad, ...]`` block at the
+      block's cohort bucket (or the global pad under ``pack="global"``)
+      and uploaded with their schedules;
+    - **full** (``client_num_per_round == client_num``): the federation is
+      packed and uploaded once; each block uploads its rounds' schedules;
+    - **device** (``device_sampling=True``): the federation is resident and
+      each round draws its cohort and every client's batch order on the
+      device (core/sampling.py ``device_sample_clients``,
+      trainer/functional.py ``device_batch_schedule``): no host work per
+      round, but that mode's own sampling stream, not the host loop's.
+
+    Graphs are cached by the shapes of their inputs (the pad bucket, k and
+    the step count), at most ``graph_capacity`` at once. Stats come back
+    stacked ``[R, ...]``."""
+
+    graph_capacity = 4
+
+    def __init__(self, api: FedAvgAPI, device_sampling: bool = False):
+        if (api._fused_driver_cls is None
+                or type(self) is not api._fused_driver_cls):
+            # exact type: a subclass driver on a base API would pass an
+            # isinstance check and fail deep in _round on missing state
+            want = (api._fused_driver_cls.__name__
+                    if api._fused_driver_cls else "no fused driver")
+            raise TypeError(
+                f"{type(api).__name__} pairs with {want} "
+                f"(use api.fused_rounds()), not {type(self).__name__}")
+        self.api = api
+        cfg, ds = api.config, api.dataset
+        self.k = min(cfg.client_num_per_round, ds.client_num)
+        self.N = ds.client_num
+        self.mode = ("device" if device_sampling
+                     else "full" if self.k == self.N else "block")
+        if api.delete_client is not None and self.mode != "block":
+            raise ValueError(
+                "full/device-sampled fused rounds do not honor "
+                "delete_client (the cohort covers all clients or is drawn "
+                "on the device); block mode (partial participation) "
+                "samples on the host and honors it")
+        if self.mode in ("full", "device"):
+            # the federation resident on the device, packed once at the
+            # global pad
+            pool = np.arange(self.N)
+            x, y, mask = ds.pack_clients(pool, cfg.train.batch_size,
+                                         n_pad=api._n_pad)
+            self._mask_host = mask
+            self._data = tuple(api._upload(a) for a in (
+                x, y, mask, ds.client_weights(pool)))
+        else:
+            self._data = None  # block mode packs per run_rounds call
+        self.graphs = GraphCache(self.graph_capacity)
+
+    # -- the host side of a block -------------------------------------------
+    def _block_inputs(self, r0: int, rounds: int):
+        """One block's inputs with a leading ``[R]`` axis, uploaded in one
+        copy each: block mode packs the R cohorts drawn with the host
+        loop's sampling stream as one ``[R, k, n_pad, ...]`` batch at the
+        block's cohort bucket; full mode builds the rounds' schedules for
+        the resident federation; device mode uploads only the round
+        indices. Every mode adds the rounds' LR scales (or None)."""
+        api, cfg, ds = self.api, self.api.config, self.api.dataset
+        rs = np.arange(r0, r0 + rounds)
+        scales = round_lr_scales(cfg.train, rs)
+        lr = None if scales is None else api._to_device(scales)
+        if self.mode == "device":
+            return {"round": api._to_device(rs.astype(np.int64)),
+                    "lr_scale": lr}
+        if self.mode == "block":
+            bsz = cfg.train.batch_size
+            cohorts = [sample_clients(r, self.N, self.k,
+                                      delete_client=api.delete_client)
+                       for r in rs]
+            flat = np.concatenate([np.asarray(c) for c in cohorts])
+            n_pad = (max(ds.cohort_padded_len(c, bsz) for c in cohorts)
+                     if cfg.pack == "cohort" else api._n_pad)
+            x, y, mask = ds.pack_clients(flat, bsz, n_pad=n_pad)
+            lead = (rounds, self.k)
+            data = {"x": x.reshape(lead + x.shape[1:]),
+                    "y": y.reshape(lead + y.shape[1:]),
+                    "mask": mask.reshape(lead + mask.shape[1:]),
+                    "weights": ds.client_weights(flat).reshape(lead)}
+            masks = data["mask"]
+        else:
+            cohorts = [np.arange(self.N)] * rounds
+            data, masks = {}, [self._mask_host] * rounds
+        plans = [api._client_plans(r, c, m)
+                 for r, c, m in zip(rs, cohorts, masks)]
+        out = {k: api._to_device(a) for k, a in data.items()}
+        out["plan"] = BatchSchedule(*(api._to_device(np.stack(f)) for f in
+                                      zip(*(p for p, _ in plans))))
+        out["agg_seed"] = api._to_device(np.array([a for _, a in plans],
+                                                  dtype=np.int64))
+        out["lr_scale"] = lr
+        return out
+
+    def _round_inputs(self, block, r: int) -> tuple:
+        """Round ``r`` of a block as the arguments of :meth:`_step`."""
+        def at(v):
+            return None if v is None else pytree.tree_map(lambda t: t[r], v)
+        if self.mode == "device":
+            return (at(block["round"]), at(block["lr_scale"]))
+        data = (self._data if self.mode == "full" else
+                tuple(at(block[k]) for k in ("x", "y", "mask", "weights")))
+        return (*data, at(block["plan"]), at(block["agg_seed"]),
+                at(block["lr_scale"]))
+
+    # -- carry protocol: subclasses fusing richer server state (e.g.
+    #    FedOpt's optimizer) override these three -------------------------
+    def _init_carry(self):
+        return self.api.variables
+
+    def _store_carry(self, carry) -> None:
+        self.api.variables = carry
+
+    def _round(self, carry, x, y, mask, weights, plan, agg_seed, lr_scale):
+        """One round on the carry: the host loop's round body with every
+        step gated on the device. Returns ``(new_carry, stats)``."""
+        return self.api._round_fn(carry, x, y, mask, weights, plan,
+                                  agg_seed, lr_scale, gated=True)
+
+    def _step(self, carry, *args):
+        if self.mode != "device":
+            return self._round(carry, *args)
+        # device sampling: the cohort, its data and its schedules from the
+        # round index alone, on the device
+        r, lr_scale = args
+        cfg = self.api.config
+        x_all, y_all, mask_all, w_all = self._data
+        rk = device_round_key(cfg.seed, r)
+        if self.k == self.N:
+            idx = torch.arange(self.N, device=x_all.device)
+        else:
+            idx = device_sample_clients(rk, self.N, self.k)
+        x, y, mask, w = (a.index_select(0, idx)
+                         for a in (x_all, y_all, mask_all, w_all))
+        tc = cfg.train
+        plan = device_batch_schedule(
+            fold32(rk, idx), mask, tc.epochs, tc.batch_size or x.shape[1],
+            tc.shuffle, tc.accum_steps)
+        return self._round(carry, x, y, mask, w, plan,
+                           fold32(rk, AGG_KEY_SENTINEL), lr_scale)
+
+    # -- dispatch ------------------------------------------------------------
+    def _run_loop(self, block, rounds: int):
+        carry, out = self._init_carry(), []
+        for r in range(rounds):
+            carry, stats = self._step(carry, *self._round_inputs(block, r))
+            out.append(stats)
+        return carry, {k: torch.stack([s[k] for s in out]) for k in out[0]}
+
+    def _capture(self, args, carry_leaves, carry_spec) -> CapturedRound:
+        """Capture one round. Its static inputs are copies of ``args``
+        (the resident federation is used in place), its carry copies of
+        ``carry_leaves``."""
+        leaves, spec = pytree.tree_flatten(args)
+        resident = {id(t) for t in self._data or ()}
+        static = [t.clone() if torch.is_tensor(t) and id(t) not in resident
+                  else t for t in leaves]
+        carry = [t.clone() for t in carry_leaves]
+
+        def fn(*flat):
+            new_carry, stats = self._step(
+                pytree.tree_unflatten(carry, carry_spec),
+                *pytree.tree_unflatten(list(flat), spec))
+            return pytree.tree_flatten(new_carry)[0], stats
+
+        with self.api.timer.phase("capture"):
+            return CapturedRound(fn, static, carry)
+
+    def _run_graph(self, block, rounds: int):
+        carry_leaves, carry_spec = pytree.tree_flatten(self._init_carry())
+        args = self._round_inputs(block, 0)
+        leaves = pytree.tree_flatten(args)[0]
+        key = (self.mode, tuple((tuple(t.shape), t.dtype) if
+                                torch.is_tensor(t) else t for t in leaves))
+        graph = self.graphs.get(
+            key, lambda: self._capture(args, carry_leaves, carry_spec))
+        for dst, src in zip(graph.carry, carry_leaves):
+            dst.copy_(src)
+        stats = {k: torch.empty((rounds,) + tuple(v.shape), dtype=v.dtype,
+                                device=v.device)
+                 for k, v in graph.outputs.items()}
+        for r in range(rounds):
+            if r:
+                leaves = pytree.tree_flatten(self._round_inputs(block, r))[0]
+            for dst, src in zip(graph.inputs, leaves):
+                if torch.is_tensor(dst) and dst is not src:
+                    dst.copy_(src)
+            graph.replay()
+            for k, v in graph.outputs.items():
+                stats[k][r].copy_(v)
+        # a clone: the next replay overwrites the static carry
+        carry = pytree.tree_unflatten([t.clone() for t in graph.carry],
+                                      carry_spec)
+        return carry, stats
+
+    def run_rounds(self, r0: int, rounds: int):
+        """Advance the api's model by ``rounds`` fused rounds starting at
+        round index ``r0``; returns the rounds' stat totals stacked
+        ``[rounds, ...]``."""
+        api = self.api
+        with api.timer.phase("pack"):
+            block = self._block_inputs(r0, rounds)
+        with api.timer.phase("dispatch"):
+            run = (self._run_graph if api.device.type == "cuda"
+                   else self._run_loop)
+            carry, stats = run(block, rounds)
+        self._store_carry(carry)
+        return stats
+
+    def cost_analysis(self, r0: int = 0, rounds: int = 1) -> Dict:
+        raise NotImplementedError(
+            "FusedRounds.cost_analysis (XLA's cost model in the JAX "
+            "package) is not ported yet: ROADMAP Queue 1, item 24 "
+            "(utils/flops.py)")
+
+    def train(self, max_rounds_per_dispatch: Optional[int] = None) -> Dict:
+        """The ``FedAvgAPI.train`` loop with the rounds fused between eval
+        points: records after rounds 0, freq, 2*freq, ... and the last
+        round, as the host loop's; ``max_rounds_per_dispatch`` caps the
+        rounds of one dispatch (the ``--fused_rounds`` value); None fuses
+        each whole eval interval."""
+        api, cfg = self.api, self.api.config
+        if cfg.comm_round <= 0:
+            return api.history[-1] if api.history else {}
+        freq = cfg.frequency_of_the_test
+        t0 = time.time()
+        evals = sorted(set(range(0, cfg.comm_round, freq))
+                       | {cfg.comm_round - 1})
+        r = 0
+        for e in evals:
+            stats = None
+            while r <= e:
+                chunk = e + 1 - r
+                if max_rounds_per_dispatch:
+                    chunk = min(chunk, max_rounds_per_dispatch)
+                stats = self.run_rounds(r, chunk)
+                r += chunk
+                _progress_log.info("fused rounds %d/%d dispatched (wall "
+                                   "%.1fs)", r, cfg.comm_round,
+                                   time.time() - t0)
+            with api.timer.phase("device_wait"):
+                synchronize(api.device)
+            with api.timer.phase("eval"):
+                rec = api.evaluate(r - 1)
+            rec["train_loss_local"] = (
+                float(stats["loss_sum"][-1])
+                / max(1.0, float(stats["count"][-1])))
+            rec["wall_s"] = time.time() - t0
+            rec.update({f"phase_{k}_ms": v * 1e3
+                        for k, v in api.timer.means().items()})
+            api.history.append(rec)
+            logging.info("fused round %d: %s", r - 1, rec)
+        return api.history[-1] if api.history else {}
+
+
+# the paired fused driver (set once both classes exist); subclasses fusing
+# more server state override this attribute
+FedAvgAPI._fused_driver_cls = FusedRounds

@@ -519,10 +519,11 @@ class FedAvgClientManager(ClientManager):
             packed = (x[0], y[0], mask[0])
         xb, yb, maskb = packed
         cfg = self._train_cfg
-        scale = round_lr_scale(cfg, round_idx)
+        scale = round_lr_scale(cfg, round_idx, self.device)
         _, (seed,), _ = round_keys(self._seed, round_idx, [client_idx])
         sched = make_batch_schedule(self._n_pad, cfg.epochs, self._bsz,
-                                    cfg.shuffle, seed, maskb)
+                                    cfg.shuffle, seed, maskb,
+                                    cfg.accum_steps)
         reply = Message(MSG_TYPE_C2S_SEND_MODEL, self.rank, 0)
         with self._device_lock:
             with tm.phase("train"):
@@ -683,7 +684,7 @@ def _initial_model(module, seed: int, device, init_variables):
     flax-matching initialization on the CPU, so every device starts from
     the same weights."""
     if init_variables is None:
-        init_params(module, make_generator(seed))
+        init_params(module.cpu(), make_generator(seed))
         return {k: v.detach().clone().to(device)
                 for k, v in module.state_dict().items()}
     want = module.state_dict()

@@ -51,6 +51,12 @@ def locked_global_numpy_rng(seed: Optional[int] = None):
 #: seed uses an id no client can occupy (client ids are int32-positive)
 AGG_KEY_SENTINEL = 2**31 - 1
 
+#: sentinel fold index of the device-sampling stream (``FusedRounds`` with
+#: ``device_sampling=True``): the cohort draw of a round hashes the round's
+#: key with this id, which no client id occupies and which differs from
+#: ``AGG_KEY_SENTINEL`` (the JAX package's value)
+DEVICE_SAMPLE_SENTINEL = 2**31 - 2
+
 #: population size above which ``sample_clients`` switches to the O(k)
 #: partial Fisher-Yates draw instead of numpy's O(N) permutation-based
 #: ``choice``; the same value as the reference package, so both packages
@@ -171,6 +177,96 @@ def _sample_clients_floyd(round_idx: int, total: int, per_round: int,
     if delete_client is not None:
         out[out >= delete_client] += 1
     return out
+
+
+# -- counter hashes: the same bits on the CPU, on the card and in a CUDA graph
+
+_M32 = 0xFFFFFFFF
+#: the 32-bit golden-ratio increment of a counter (a Weyl sequence)
+_GOLDEN = 0x9E3779B9
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for 32-bit values held in int64: a constant of
+    2**31 or more is taken as ``c - 2**32`` (the same residue), so the
+    product stays inside int64 and nothing overflows."""
+    return (x * (c - (1 << 32) if c >= 1 << 31 else c)) & _M32
+
+
+def mix32(x):
+    """A bijection of 32-bit values (``lowbias32`` from C. Wellons' hash
+    prospector) in plain integer ops. ``x``: an int64 tensor or a Python
+    int in ``[0, 2**32)``."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def fold32(key, data):
+    """A 32-bit key for ``data`` under ``key`` (tensors broadcast, or
+    Python ints): the counter-hash analogue of ``fold_in``."""
+    return mix32(key ^ mix32((_mul32(data, _GOLDEN) + 1) & _M32))
+
+
+#: ``_mul32(arange(n), _GOLDEN)`` by ``(n, device)``: a dropout site draws
+#: the same counters at every step. An entry is never evicted (a captured
+#: CUDA graph may read it); past ``_WEYL_MAX`` sizes, or while a CUDA graph
+#: captures, the counters are computed at the call instead.
+_WEYL: dict = {}
+_WEYL_MAX = 32
+
+
+def _weyl(n: int, device) -> torch.Tensor:
+    device = torch.device(device)
+    got = _WEYL.get((n, device))
+    if got is None:
+        got = _mul32(torch.arange(n, dtype=torch.int64, device=device),
+                     _GOLDEN)
+        if len(_WEYL) < _WEYL_MAX and not (
+                device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _WEYL[(n, device)] = got
+    return got
+
+
+def counter_bits(key, n: int, device) -> torch.Tensor:
+    """32-bit hash values (int64 ``[..., n]``) of the counters ``0..n-1``
+    under ``key`` (a Python int, or a 0-dim or batched int64 tensor,
+    broadcast over a new last axis): ``mix32`` of ``(i * golden + key) mod
+    2**32``, in place on one fresh tensor."""
+    if n >= 1 << 32:
+        raise ValueError(f"{n} counters: a stream holds 2**32")
+    if torch.is_tensor(key):
+        key = key.to(device=device, dtype=torch.int64)[..., None]
+    x = _weyl(n, device) + key
+    x &= _M32
+    for shift, mul in ((16, 0x7FEB352D), (15, 0x846CA68B)):
+        x ^= x >> shift
+        x *= mul - (1 << 32) if mul >= 1 << 31 else mul
+        x &= _M32
+    x ^= x >> 16
+    return x
+
+
+def device_round_key(base_seed: int, round_idx: torch.Tensor):
+    """The device-sampling stream's 32-bit key of a round: a hash of the
+    base seed and the round index (a 0-dim int64 tensor), so a replayed
+    graph derives each round's key on the device."""
+    base = derive_seed(base_seed, DEVICE_SAMPLE_SENTINEL) & _M32
+    return fold32(base, round_idx & _M32)
+
+
+def device_sample_clients(round_key: torch.Tensor, client_num: int,
+                          per_round: int) -> torch.Tensor:
+    """``per_round`` of ``client_num`` client ids without replacement, drawn
+    on the device: the first ``per_round`` of the ids ordered by a hash of
+    ``(round_key, id)`` (a stable sort, so equal hashes order by id). The
+    device-sampling mode's own stream, not the host loop's
+    ``sample_clients`` (as the JAX package's ``jax.random.choice``)."""
+    bits = counter_bits(round_key, client_num, round_key.device)
+    return torch.sort(bits, stable=True).indices[:per_round]
 
 
 def eval_subsample(x, y, limit: Optional[int], seed: int):

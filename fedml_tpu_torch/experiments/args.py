@@ -19,7 +19,10 @@ def add_federated_args(parser: argparse.ArgumentParser):
     parser.add_argument("--client_num_in_total", type=int, default=10)
     parser.add_argument("--client_num_per_round", type=int, default=10)
     parser.add_argument("--batch_size", type=int, default=32)
-    parser.add_argument("--client_optimizer", type=str, default="sgd")
+    parser.add_argument("--client_optimizer", type=str, default="sgd",
+                        choices=["sgd", "adam"],
+                        help="sgd, or adam (optax's amsgrad, with --wd "
+                             "folded into the gradient)")
     parser.add_argument("--backend", type=str, default="simulation",
                         choices=["simulation", "spmd", "inproc", "mpi",
                                  "tcp", "grpc"],
@@ -47,10 +50,12 @@ def add_federated_args(parser: argparse.ArgumentParser):
     parser.add_argument("--frequency_of_the_test", type=int, default=5)
     parser.add_argument("--compute_dtype", type=str, default=None,
                         choices=[None, "bfloat16", "float32"],
-                        help="mixed precision (not ported yet: raises)")
+                        help="mixed precision: forward and backward in "
+                             "this dtype off float32 masters")
     parser.add_argument("--accum_steps", type=int, default=1,
-                        help="gradient accumulation (not ported yet: > 1 "
-                             "raises)")
+                        help="gradient accumulation: one optimizer step "
+                             "every k real micro-batches (optax "
+                             "MultiSteps, mean of the gradients)")
     parser.add_argument("--lr_decay_round", type=float, default=1.0,
                         help="per-round exponential client-LR decay: "
                              "effective lr at round r is lr * decay**r")
@@ -60,8 +65,10 @@ def add_federated_args(parser: argparse.ArgumentParser):
                              "$FEDML_TPU_TORCH_PREFETCH overrides); the "
                              "trajectory is the same either way")
     parser.add_argument("--fused_rounds", type=int, default=0,
-                        help="fused multi-round dispatch (not ported yet: "
-                             "non-zero raises)")
+                        help="fused multi-round dispatch: up to this many "
+                             "rounds a dispatch (FusedRounds; on a GPU, "
+                             "replays of a captured CUDA graph); 0 = the "
+                             "host round loop")
     parser.add_argument("--eval_train_subsample", type=int, default=None,
                         help="evaluate train metrics on a fixed seeded "
                              "subsample of the train union (None = full)")

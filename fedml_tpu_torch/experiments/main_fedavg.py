@@ -6,13 +6,16 @@ Runs on ``--device`` (default ``cuda``; no GPU and no ``--device cpu``
 raises) either the ``simulation`` backend (FedAvgAPI) or the cross-silo
 protocol (``--backend inproc``, or ``mpi``, the same in-process router: one
 server and ``client_num_per_round`` silo actors exchanging messages, with
-the wire policy ``--compression``). The other backends,
-``--checkpoint_dir``, ``--fused_rounds`` and ``--obs_dir`` are not ported
-yet and raise ``NotImplementedError``.
+the wire policy ``--compression``). ``--fused_rounds R`` runs the
+simulation R rounds a dispatch through ``FusedRounds`` (on a GPU, replays
+of a captured CUDA graph of the round). The other backends,
+``--checkpoint_dir`` and ``--obs_dir`` are not ported yet and raise
+``NotImplementedError``.
 
 Usage: python -m fedml_tpu_torch.experiments.main_fedavg \
     --dataset femnist_gen --client_num_in_total 200 --client_num_per_round 10 \
     --batch_size 20 --lr 0.1 --comm_round 5 \
+    [--fused_rounds 5 --compute_dtype bfloat16] \
     [--backend inproc --compression topk_ef_int8:0.05]
 """
 
@@ -48,6 +51,14 @@ def run_simulation(args, ds, model, task, sink):
                        obs_dir=args.obs_dir,
                        train=make_train_config(args))
     api = FedAvgAPI(ds, model, task=task, config=cfg, device=args.device)
+    if args.fused_rounds:
+        # up to --fused_rounds rounds a dispatch, with the host loop's
+        # trajectory and eval cadence
+        rec = api.fused_rounds().train(
+            max_rounds_per_dispatch=args.fused_rounds)
+        for hist_rec in api.history:
+            sink.log(hist_rec, step=hist_rec["round"])
+        return rec
     rec = {}
     for r in range(cfg.comm_round):
         api.run_round(r)
@@ -104,10 +115,10 @@ def _not_ported(args) -> None:
         raise NotImplementedError(
             f"--backend {args.backend} is not ported yet: ROADMAP Queue 1 "
             "(spmd: item 26; tcp/grpc: Slice D item 22b)")
-    if args.fused_rounds:
-        raise NotImplementedError(
-            "--fused_rounds is not ported yet: ROADMAP Queue 1, Slice A "
-            "item 7 (FusedRounds)")
+    if args.fused_rounds and args.backend != "simulation":
+        raise ValueError("--fused_rounds fuses the simulation backend's "
+                         f"rounds; --backend {args.backend} exchanges a "
+                         "message a round")
     if args.checkpoint_dir:
         raise NotImplementedError(
             "--checkpoint_dir is not ported yet: ROADMAP Queue 1, item 24 "

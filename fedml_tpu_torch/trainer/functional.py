@@ -13,11 +13,19 @@ Data layout per client: flat padded tensors ``x: [n_pad, ...]``, ``y``,
 weights the loss so padding rows contribute zero gradient.
 
 The batch schedule (which rows form each step, the dropout seed of each
-step, and whether the step holds any real row) is computed on the host from
-the host copy of the mask, so a round never waits on the device to decide
-what to launch. Steps whose batch holds only padding rows are skipped: the
-JAX package gates them into exact no-ops (``has_real``), and skipping them is
-the same no-op.
+step, whether the step holds any real row, and gradient accumulation's
+emit flags) is computed on the host from the host copy of the mask, so a
+round never waits on the device to decide what to launch. Every step runs
+one step function (:func:`make_train_step`). Two ways to walk the steps:
+
+- the host loop skips the steps whose batch holds only padding rows;
+- ``gated=True`` runs every one of the ``epochs * nb`` steps and selects
+  params, optimizer state and stats with ``torch.where(has_real, new,
+  old)``, the JAX package's gating (``fedml_tpu/trainer/functional.py:
+  293-303``). Its step count and every input are fixed by the shapes, so a
+  CUDA graph can capture it (``algorithms/fedavg.py``, ``FusedRounds``).
+
+Both leave padding-only batches true no-ops, so they give the same bits.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from fedml_tpu_torch.core.sampling import derive_seed, make_generator
+from fedml_tpu_torch.core.sampling import (counter_bits, derive_seed, fold32,
+                                           make_generator)
+from fedml_tpu_torch.models.common import DropoutKey
 from fedml_tpu_torch.trainer.tasks import TASK_HEADS, TaskHead
 
 
@@ -37,20 +47,23 @@ from fedml_tpu_torch.trainer.tasks import TASK_HEADS, TaskHead
 class TrainConfig:
     """Local-training hyperparameters (reference argparse flags:
     --epochs --batch_size --client_optimizer --lr --wd). The same fields as
-    ``fedml_tpu.trainer.functional.TrainConfig``; this slice runs
-    ``client_optimizer="sgd"`` (with or without momentum), and
-    :func:`make_local_train` raises ``NotImplementedError`` for the rest."""
+    ``fedml_tpu.trainer.functional.TrainConfig``."""
 
     epochs: int = 1
     batch_size: Optional[int] = None  # None = full batch (one step per epoch)
     lr: float = 0.03
-    client_optimizer: str = "sgd"  # "sgd" | "adam"
+    client_optimizer: str = "sgd"  # "sgd" | "adam" (optax's amsgrad)
     # like the reference's optax.sgd path, plain SGD takes no weight decay:
     # wd is read only by the adam path
     wd: float = 0.0
     momentum: float = 0.0
     shuffle: bool = True
+    # mixed precision: forward and backward in this dtype (e.g.
+    # "bfloat16") off float32 masters; optimizer state, loss, stats and the
+    # aggregation stay float32. None = pure f32 (parity tests).
     compute_dtype: Optional[str] = None
+    # gradient accumulation (optax.MultiSteps, mean of the gradients): one
+    # optimizer step every accum_steps real micro-batches
     accum_steps: int = 1
     # per-ROUND exponential client-LR decay: the round's updates are scaled
     # by lr_decay_round ** round_idx. Exact, because the optimizer is fresh
@@ -80,55 +93,189 @@ def validate_accum_steps(cfg: TrainConfig, client_sizes) -> None:
             "silently dropped")
 
 
-def round_lr_scale(cfg: TrainConfig, round_idx) -> Optional[float]:
-    """The per-round client-LR scale ``lr_decay_round ** round_idx``
-    computed in float32 as the reference does, or None when the schedule
-    is off."""
+def round_lr_scales(cfg: TrainConfig, round_idxs) -> Optional[np.ndarray]:
+    """The per-round client-LR scales ``lr_decay_round ** r`` computed in
+    float32 as the reference does, or None when the schedule is off."""
     if cfg.lr_decay_round == 1.0:
         return None
-    return float(np.power(np.float32(cfg.lr_decay_round),
-                          np.float32(round_idx)))
+    return np.power(np.float32(cfg.lr_decay_round),
+                    np.asarray(round_idxs, dtype=np.float32))
 
 
-def check_supported(cfg: TrainConfig) -> None:
-    """Raise for the TrainConfig options this slice does not run yet."""
-    if cfg.client_optimizer == "adam":
-        raise NotImplementedError(
-            "client_optimizer='adam' (optax's amsgrad form) is not ported "
-            "yet: ROADMAP Queue 1, Slice A item 4 (amsgrad)")
-    if cfg.client_optimizer != "sgd":
+def round_lr_scale(cfg: TrainConfig, round_idx,
+                   device) -> Optional[torch.Tensor]:
+    """One round's scale as a 0-dim f32 tensor on ``device`` (a device
+    input, never a Python number a CUDA graph would freeze), or None."""
+    scales = round_lr_scales(cfg, [round_idx])
+    if scales is None:
+        return None
+    return torch.full((), float(scales[0]), dtype=torch.float32,
+                      device=device)
+
+
+def compute_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
+    """``cfg.compute_dtype`` as a torch floating dtype (None: f32)."""
+    if cfg.compute_dtype is None:
+        return None
+    dt = getattr(torch, str(cfg.compute_dtype), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"unknown compute_dtype: {cfg.compute_dtype!r}")
+    return dt
+
+
+# -- the client optimizers (optax's, by hand, over lists of tensors) ---------
+
+class Optimizer(NamedTuple):
+    """``init(params) -> state`` and ``update(grads, state, params, emit,
+    acc_div) -> (updates, state)`` over lists of tensors, optax's
+    ``GradientTransformation`` in the port's idiom. ``emit`` and
+    ``acc_div`` (0-dim tensors) are read only under ``accum_steps > 1``."""
+
+    init: Callable
+    update: Callable
+
+
+def _sgd(lr: float, momentum: float) -> Optimizer:
+    """``optax.sgd``: trace ``t = g + momentum * t`` (from zeros), update
+    ``-lr * t``."""
+
+    def init(params):
+        return {"trace": [torch.zeros_like(p) for p in params]} \
+            if momentum else {}
+
+    def update(grads, state, params, emit=None, acc_div=None):
+        if momentum:
+            t = torch._foreach_add(grads,
+                                   torch._foreach_mul(state["trace"],
+                                                      momentum))
+            state = {"trace": t}
+        else:
+            t = grads
+        return torch._foreach_mul(t, -lr), state
+
+    return Optimizer(init, update)
+
+
+def _amsgrad(lr: float, wd: float, b1: float = 0.9, b2: float = 0.999,
+             eps: float = 1e-8) -> Optimizer:
+    """``optax.chain(add_decayed_weights(wd), amsgrad(lr))`` (optax 0.2.6
+    ``scale_by_amsgrad``): ``g + wd * p``; ``mu = (1-b1) g + b1 mu``, ``nu =
+    (1-b2) g^2 + b2 nu``; ``count += 1``; both moments divided by ``1 -
+    b**count`` (float32); ``nu_max = max(nu_max, nu_hat)``; ``-lr * mu_hat /
+    (sqrt(nu_max) + eps)``. The max is of the bias-corrected moment, which
+    ``torch.optim.Adam(amsgrad=True)`` takes before the correction."""
+
+    def init(params):
+        zeros = [[torch.zeros_like(p) for p in params] for _ in range(3)]
+        return {"mu": zeros[0], "nu": zeros[1], "nu_max": zeros[2],
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=params[0].device)}
+
+    def update(grads, state, params, emit=None, acc_div=None):
+        if wd:
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                                torch._foreach_mul(state["mu"], b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+            torch._foreach_mul(state["nu"], b2))
+        count = state["count"] + 1
+        steps = count.to(torch.float32)
+        mu_hat = torch._foreach_div(mu, 1 - torch.pow(b1, steps))
+        nu_hat = torch._foreach_div(nu, 1 - torch.pow(b2, steps))
+        nu_max = torch._foreach_maximum(state["nu_max"], nu_hat)
+        u = torch._foreach_div(mu_hat, torch._foreach_add(
+            torch._foreach_sqrt(nu_max), eps))
+        return torch._foreach_mul(u, -lr), {"mu": mu, "nu": nu,
+                                            "nu_max": nu_max, "count": count}
+
+    return Optimizer(init, update)
+
+
+def _multi_steps(inner: Optimizer) -> Optimizer:
+    """``optax.MultiSteps(inner, every_k_schedule=k)`` with the mean of the
+    gradients: ``acc + (g - acc) / (n + 1)`` (Welford, ``acc_div = n + 1``
+    from the schedule); on an emitting step the inner update of ``acc``
+    goes out and ``acc`` resets, otherwise the update is zero and the inner
+    state holds. ``emit`` and ``acc_div`` come from the batch schedule
+    (:func:`accum_flags`), so no counter lives in the state."""
+
+    def init(params):
+        return {"inner": inner.init(params),
+                "acc": [torch.zeros_like(p) for p in params]}
+
+    def update(grads, state, params, emit=None, acc_div=None):
+        acc = torch._foreach_add(state["acc"], torch._foreach_div(
+            torch._foreach_sub(grads, state["acc"]), acc_div))
+        u, new_inner = inner.update(acc, state["inner"], params)
+        on = emit.to(torch.float32)
+        return torch._foreach_mul(u, on), {
+            "inner": tree_where(emit, new_inner, state["inner"]),
+            "acc": torch._foreach_mul(acc, 1 - on)}
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(cfg: TrainConfig) -> Optimizer:
+    """The client optimizer (reference MyModelTrainer.py:26-31): plain or
+    momentum SGD, or Adam in optax's amsgrad form with ``wd`` folded into
+    the gradient; wrapped in MultiSteps under ``accum_steps > 1``."""
+    if cfg.client_optimizer == "sgd":
+        opt = _sgd(cfg.lr, cfg.momentum)
+    elif cfg.client_optimizer == "adam":
+        opt = _amsgrad(cfg.lr, cfg.wd)
+    else:
         raise ValueError(f"unknown client_optimizer: {cfg.client_optimizer!r}")
-    if cfg.accum_steps > 1:
-        raise NotImplementedError(
-            "accum_steps > 1 is not ported yet: ROADMAP Queue 1, Slice A "
-            "item 4 (accum_steps)")
-    if cfg.compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype is not ported yet: ROADMAP Queue 1, Slice A "
-            "item 4 (compute_dtype)")
+    return _multi_steps(opt) if cfg.accum_steps > 1 else opt
 
 
-def make_forward(module: torch.nn.Module) -> Callable:
-    """``forward(variables, x, train, generator=None)`` over a state dict."""
+def tree_where(cond: torch.Tensor, new, old):
+    """``torch.where(cond, new, old)`` over matching dicts and lists."""
+    if isinstance(new, dict):
+        return {k: tree_where(cond, new[k], old[k]) for k in new}
+    if isinstance(new, (list, tuple)):
+        return [tree_where(cond, a, b) for a, b in zip(new, old)]
+    return torch.where(cond, new, old)
 
-    def forward(variables, x, train: bool, generator=None):
-        return functional_call(module, variables, (x,),
-                               {"train": train, "generator": generator})
 
-    return forward
-
+# -- the batch schedule ------------------------------------------------------
 
 class BatchSchedule(NamedTuple):
-    # [epochs * nb, bsz] int64 row indices (numpy, or a tensor already on
-    # the data's device)
+    """One client's steps (numpy on the host, or tensors on the data's
+    device; a stacked schedule carries a leading client axis)."""
+
+    # [epochs * nb, bsz] int64 row indices
     batch_idx: np.ndarray
-    step_seeds: List[int]   # dropout seed of each step
+    # [epochs * nb] the dropout seed of each step (63-bit ints; int64 once
+    # stacked or on the device, where each step reads its 0-dim seed)
+    step_seeds: List[int]
     has_real: np.ndarray    # [epochs * nb] bool: the batch holds a real row
+    # gradient accumulation: the step emits the optimizer update, and the
+    # divisor n + 1 of its micro-batch in the running mean (1.0 when off)
+    emit: np.ndarray        # [epochs * nb] bool
+    acc_div: np.ndarray     # [epochs * nb] float32
+
+    def at(self, i) -> "BatchSchedule":
+        """Client ``i`` of a stacked schedule."""
+        return BatchSchedule(*(f[i] for f in self))
+
+
+def accum_flags(has_real: np.ndarray, accum_steps: int):
+    """MultiSteps' emit pattern as a pure function of the schedule: only
+    real steps advance the mini-step counter, so real step ``j`` (from 0)
+    has divisor ``j % k + 1`` and emits when that is ``k``. Padding-only
+    steps emit nothing and divide by 1. ``accum_steps <= 1`` emits on
+    every real step."""
+    has_real = np.asarray(has_real, bool)
+    mini = (np.cumsum(has_real) - 1) % max(1, accum_steps)
+    emit = has_real & (mini == max(1, accum_steps) - 1)
+    acc_div = np.where(has_real, mini + 1, 1).astype(np.float32)
+    return emit, acc_div
 
 
 def make_batch_schedule(n_pad: int, epochs: int, bsz: int, shuffle: bool,
-                        seed: int, mask: Optional[np.ndarray] = None
-                        ) -> BatchSchedule:
+                        seed: int, mask: Optional[np.ndarray] = None,
+                        accum_steps: int = 1) -> BatchSchedule:
     """Epochs x batches schedule for one client, on the host.
 
     PADDING-INVARIANT: each epoch permutes only the real rows (``mask >
@@ -157,66 +304,182 @@ def make_batch_schedule(n_pad: int, epochs: int, bsz: int, shuffle: bool,
     batch_idx = np.stack(orders).reshape(epochs * nb, bsz).astype(np.int64)
     step_seeds = [derive_seed(seed, 1, e, b)
                   for e in range(epochs) for b in range(nb)]
-    return BatchSchedule(batch_idx, step_seeds,
-                         is_real[batch_idx].any(axis=1))
+    has_real = is_real[batch_idx].any(axis=1)
+    return BatchSchedule(batch_idx, step_seeds, has_real,
+                         *accum_flags(has_real, accum_steps))
 
 
-def _add_stats(total, stats):
-    if total is None:
-        return {k: v.detach() for k, v in stats.items()}
-    return {k: total[k] + stats[k].detach() for k in total}
+def stack_schedules(scheds: List[BatchSchedule]) -> BatchSchedule:
+    """Clients' schedules stacked on a leading axis (numpy)."""
+    return BatchSchedule(*(np.stack(f) for f in zip(*scheds)))
+
+
+def device_batch_schedule(seeds: torch.Tensor, mask: torch.Tensor,
+                          epochs: int, bsz: int, shuffle: bool,
+                          accum_steps: int = 1) -> BatchSchedule:
+    """The stacked schedule of ``k`` clients built on the device from their
+    32-bit seeds (``[k]`` int64) and masks (``[k, n_pad]``), with no host
+    work: the device-sampling mode's (``FusedRounds(device_sampling=True)``)
+    counterpart of :func:`make_batch_schedule`, as the JAX package builds
+    its order (``fedml_tpu/trainer/functional.py:165-176``): each epoch's
+    order is the stable argsort of a per-row hash with padding rows last,
+    so it is padding-invariant too. Its own stream: the host schedule's
+    orders and seeds come from other generators."""
+    k, n_pad = mask.shape
+    if n_pad % bsz:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of bsz={bsz}")
+    nb, dev = n_pad // bsz, mask.device
+    epoch = torch.arange(epochs, dtype=torch.int64, device=dev)
+    if shuffle:
+        keys = fold32(fold32(seeds, 0)[:, None], epoch)     # [k, epochs]
+        bits = counter_bits(keys, n_pad, dev)                # [k, e, n_pad]
+        bits = torch.where(mask[:, None, :] > 0, bits, 1 << 32)
+        order = torch.sort(bits, dim=-1, stable=True).indices
+    else:
+        order = torch.arange(n_pad, device=dev).expand(k, epochs, n_pad)
+    batch_idx = order.reshape(k, epochs * nb, bsz)
+    step_keys = fold32(fold32(seeds, 1)[:, None], epoch)    # [k, epochs]
+    step_seeds = fold32(step_keys[..., None],
+                        torch.arange(nb, device=dev)).reshape(k, -1)
+    has_real = (mask.gather(1, batch_idx.reshape(k, -1)) > 0).reshape(
+        k, -1, bsz).any(-1)
+    k_acc = max(1, accum_steps)
+    mini = (torch.cumsum(has_real, -1) - 1) % k_acc
+    emit = has_real & (mini == k_acc - 1)
+    acc_div = torch.where(has_real, mini + 1, 1).to(torch.float32)
+    return BatchSchedule(batch_idx, step_seeds, has_real, emit, acc_div)
+
+
+# -- one step, and local training -------------------------------------------
+
+def make_forward(module: torch.nn.Module) -> Callable:
+    """``forward(variables, x, train, generator=None)`` over a state dict;
+    ``generator`` is a ``torch.Generator`` or a ``DropoutKey``."""
+
+    def forward(variables, x, train: bool, generator=None):
+        return functional_call(module, variables, (x,),
+                               {"train": train, "generator": generator})
+
+    return forward
+
+
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def make_train_step(module: torch.nn.Module, task: str, cfg: TrainConfig):
+    """Build ``(init, step)``: ``init(params) -> optimizer state`` and
+    ``step(names, params, state, xb, yb, mb, seed, lr_scale=None,
+    has_real=None, emit=None, acc_div=None) -> (params, state, stats)``,
+    one SGD step of one client on lists of tensors.
+
+    Under ``compute_dtype`` the params, the float inputs and the forward
+    run in that dtype through explicit casts on the autograd path, and the
+    output comes back ``.float()`` before the head, so the gradients, the
+    optimizer and the stats stay f32 (not ``torch.autocast``, which keeps
+    another set of ops in f32 than the JAX package). ``seed`` is the step's
+    dropout seed (a Python int, or a 0-dim int64 tensor in a captured
+    round); ``lr_scale`` a 0-dim f32 tensor or None.
+    ``has_real`` (0-dim bool) gates the whole step into a no-op: params,
+    optimizer state and stats keep their old values (stats: zero)."""
+    head: TaskHead = TASK_HEADS[task]
+    forward = make_forward(module)
+    opt = make_optimizer(cfg)
+    cdtype = compute_dtype(cfg)
+
+    def step(names, params, state, xb, yb, mb, seed, lr_scale=None,
+             has_real=None, emit=None, acc_div=None):
+        leaves = [p.detach().requires_grad_(True) for p in params]
+        if cdtype is not None:
+            variables = {n: _cast(p, cdtype) for n, p in zip(names, leaves)}
+            out = forward(variables, _cast(xb, cdtype), True,
+                          DropoutKey(seed)).float()
+        else:
+            out = forward(dict(zip(names, leaves)), xb, True,
+                          DropoutKey(seed))
+        stats = head(out, yb, mb)
+        loss = stats["loss_sum"] / stats["count"].clamp(min=1.0)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            updates, new_state = opt.update(list(grads), state, params,
+                                            emit, acc_div)
+            if lr_scale is not None:
+                updates = torch._foreach_mul(updates, lr_scale)
+            new_params = torch._foreach_add(params, updates)
+            stats = {k: v.detach() for k, v in stats.items()}
+            if has_real is not None:
+                new_params = tree_where(has_real, new_params, params)
+                new_state = tree_where(has_real, new_state, state)
+                stats = {k: torch.where(has_real, v, 0.0)
+                         for k, v in stats.items()}
+        return new_params, new_state, stats
+
+    return opt.init, step
 
 
 def make_local_train(module: torch.nn.Module, task: str, cfg: TrainConfig):
     """Build ``local_train(variables, x, y, mask, seed, lr_scale=None,
-    schedule=None) -> (variables, stats)``.
+    schedule=None, gated=False) -> (variables, stats)``.
 
     ``variables`` is a ``{name: tensor}`` state dict on the data's device;
     the result is a new state dict (the input is not modified). ``stats``
     are the summed head stats over the client's real steps. ``schedule``
     is the client's :class:`BatchSchedule`; without one it is built from
-    ``mask`` (which then waits for the device)."""
-    check_supported(cfg)
+    ``mask`` (which then waits for the device). ``lr_scale`` is a 0-dim f32
+    tensor (:func:`round_lr_scale`) or None.
+
+    ``gated=False`` skips padding-only steps on the host (it reads
+    ``schedule.has_real`` there); ``gated=True`` runs every step with the
+    gate on the device, reads nothing on the host and so can be captured
+    in a CUDA graph: then ``schedule``'s fields must be tensors on the
+    data's device."""
     head: TaskHead = TASK_HEADS[task]
     forward = make_forward(module)
-    lr, momentum = cfg.lr, cfg.momentum
+    init, step = make_train_step(module, task, cfg)
+    accum = cfg.accum_steps > 1
 
     def local_train(variables, x, y, mask, seed: int, lr_scale=None,
-                    schedule: Optional[BatchSchedule] = None):
+                    schedule: Optional[BatchSchedule] = None,
+                    gated: bool = False):
         n_pad = x.shape[0]
         bsz = cfg.batch_size or n_pad
         if schedule is None:
             schedule = make_batch_schedule(n_pad, cfg.epochs, bsz,
                                            cfg.shuffle, seed,
-                                           mask.cpu().numpy())
-        idx = torch.as_tensor(schedule.batch_idx, device=x.device)
+                                           mask.cpu().numpy(),
+                                           cfg.accum_steps)
+        dev = x.device
+
+        def on_dev(a, dtype=None):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
+        idx = on_dev(schedule.batch_idx, torch.int64)
+        emit = on_dev(schedule.emit) if accum else None
+        acc_div = on_dev(schedule.acc_div, torch.float32) if accum else None
+        if gated:
+            gate = on_dev(schedule.has_real)
+            seeds = on_dev(schedule.step_seeds, torch.int64)
+            steps = range(idx.shape[0])
+        else:
+            # the host reads the gates and the seeds (dropout's site keys
+            # are then hashed on the host, not launched)
+            has_real, seeds = (
+                a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+                for a in (schedule.has_real, schedule.step_seeds))
+            seeds = [int(v) for v in seeds]
+            steps = np.flatnonzero(has_real)
         names = list(variables)
         params = [variables[k].detach() for k in names]
-        trace = None  # momentum buffer: optax.trace starts at zeros
-        gen = torch.Generator(device=x.device)
+        state = init(params)
         total = None
-        for s in np.flatnonzero(schedule.has_real):
+        for s in steps:
             rows = idx[s]
-            gen.manual_seed(schedule.step_seeds[s])
-            leaves = [p.requires_grad_(True) for p in params]
-            out = forward(dict(zip(names, leaves)), x[rows], True, gen)
-            stats = head(out, y[rows], mask[rows])
-            loss = stats["loss_sum"] / stats["count"].clamp(min=1.0)
-            grads = torch.autograd.grad(loss, leaves)
-            with torch.no_grad():
-                # optax.sgd: trace t = g + momentum * t, update u = -lr * t
-                if momentum:
-                    t = (list(grads) if trace is None else torch._foreach_add(
-                        list(grads), torch._foreach_mul(trace, momentum)))
-                    trace = t
-                else:
-                    t = list(grads)
-                updates = torch._foreach_mul(t, -lr)
-                if lr_scale is not None:
-                    torch._foreach_mul_(updates, lr_scale)
-                params = torch._foreach_add([p.detach() for p in leaves],
-                                            updates)
-            total = _add_stats(total, stats)
+            params, state, stats = step(
+                names, params, state, x[rows], y[rows], mask[rows], seeds[s],
+                lr_scale, gate[s] if gated else None,
+                emit[s] if accum else None, acc_div[s] if accum else None)
+            total = stats if total is None else {
+                k: total[k] + stats[k] for k in total}
         if total is None:  # no real row at all: zero stats, params as given
             with torch.no_grad():
                 total = {k: torch.zeros_like(v) for k, v in head(
@@ -255,3 +518,9 @@ def make_eval(module: torch.nn.Module, task: str,
         return total
 
     return evaluate
+
+
+def _add_stats(total, stats):
+    if total is None:
+        return dict(stats)
+    return {k: total[k] + stats[k] for k in total}

@@ -282,15 +282,29 @@ def test_main_runs_two_rounds_on_blob_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--backend", "spmd"], ["--fused_rounds", "4"],
-    ["--checkpoint_dir", "ckpt"], ["--obs_dir", "obs"],
-    ["--client_optimizer", "adam"], ["--accum_steps", "2"],
-    ["--compute_dtype", "bfloat16"]])
+    ["--backend", "spmd"], ["--checkpoint_dir", "ckpt"],
+    ["--obs_dir", "obs"]])
 def test_unported_options_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_fedavg.main(["--device", "cpu", "--client_num_in_total", "4",
                           "--comm_round", "1", "--batch_size", "10",
                           "--run_dir", str(tmp_path)] + flag)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--fused_rounds", "4"], ["--client_optimizer", "adam"],
+    # two epochs: every blob client's real step count is then even
+    ["--accum_steps", "2", "--epochs", "2"],
+    ["--compute_dtype", "bfloat16"]])
+def test_ported_options_run(flag, tmp_path):
+    final = main_fedavg.main([
+        "--device", "cpu", "--client_num_in_total", "4",
+        "--client_num_per_round", "2", "--comm_round", "2",
+        "--frequency_of_the_test", "1", "--batch_size", "10",
+        "--lr", "0.1", "--run_dir", str(tmp_path)] + flag)
+    assert [r["round"] for r in read_metrics(str(tmp_path))] == [0, 1]
+    assert final["round"] == 1
+    assert np.isfinite(final["train_loss"]) and np.isfinite(final["test_loss"])
 
 
 def test_train_records_eval_cadence():
