@@ -73,7 +73,24 @@
    the codec and fold times and the wire bytes a round against ``none``;
 10. runs one cross-silo LR round on the card and on the CPU from the same
    weights (TF32 off) under ``none`` and ``topk_ef`` (no random bits) and
-   compares the parameters.
+   compares the parameters;
+11. drives FedOpt with a server Adam on the CNN through
+   ``fedml_tpu_torch.experiments.fed_launch.main --algo fedopt``, 10 rounds
+   through the host loop and 10 with ``--fused_rounds 5`` (the server step
+   inside the captured round), checks the aggregation launches (one a
+   round, one more a capture's warm-up round) and that the test loss fell,
+   holds a fused block to the host loop (params and Adam state, 1e-6,
+   cuDNN deterministic) and a round of server SGD at lr 1 to FedAvg's
+   (1e-6), then times both as in 4a;
+12. runs the rest of the slice through ``fed_launch.main`` for 2-3 rounds:
+   ``fedavg_robust`` on the CNN under every defense (and a fused block
+   under ``weak_dp`` against its host loop), ``fednova``, ``hierarchical``
+   and ``turboaggregate`` on the CNN, ``centralized``, ``decentralized``
+   and ``contribution`` on LR, checking finite metrics, each one's
+   aggregation launches and a falling loss where the JAX tests assert one;
+13. runs one LR round of FedOpt, FedNova and robust median on the card and
+   on the CPU from the same weights (TF32 off) and compares the parameters
+   and server state.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -108,10 +125,23 @@ LM_LR = 0.3
 FLASH_TOL = dict(rtol=1e-4, atol=1e-4)  # f32; bf16 takes 2e-2
 SILO_K = 60_330  # top-k survivors of the CNN's delta at keep-fraction 0.05
 # the main path's flags (FEMNIST CNN, 200 clients, 10 a round, batch 20)
-MAIN_FLAGS = ["--dataset", "femnist_gen", "--client_num_in_total", "200",
-              "--client_num_per_round", "10", "--batch_size", "20",
-              "--epochs", "1", "--lr", "0.1", "--device", "cuda"]
+MAIN_CLIENTS = 200
+MAIN_FLAGS = ["--dataset", "femnist_gen", "--client_num_in_total",
+              str(MAIN_CLIENTS), "--client_num_per_round", "10",
+              "--batch_size", "20", "--epochs", "1", "--lr", "0.1",
+              "--device", "cuda"]
 FUSED_R = 5  # rounds a fused dispatch
+# FedOpt's server Adam step (Reddi et al., 2021, tune it near 1e-2.5 for
+# the EMNIST CNN)
+FEDOPT_LR = 0.003
+# server SGD at lr 1 against FedAvg after one CNN round: w - 1.0 * (w -
+# avg) is avg within an ulp of w (3.7e-9 on the card and in a CPU run at a
+# cut size; a second round's max pools can route a gradient elsewhere on
+# such a difference: 3.5e-4 in that CPU run)
+FEDOPT_SGD_TOL = 1e-6
+ROBUST_DEFENSES = ("none", "norm_diff_clipping", "weak_dp", "median",
+                   "trimmed_mean", "krum")
+SLICE_ROUNDS = 3  # rounds of each phase-12 run on the CNN
 # bf16 against f32 after one main-path round: its relative L2 distance may
 # be at most this multiple of an f32 round's from weights perturbed by
 # 2**-9 (a round of ~17 SGD steps at lr 0.1 moves a bf16-sized error
@@ -1193,10 +1223,20 @@ def _main_api(parts, comm_round, freq=10**9, **train):
     """A FedAvgAPI on the main path's configuration (``train`` overrides
     fields of its TrainConfig)."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    return _algo_api(FedAvgAPI, FedAvgConfig, parts, comm_round, freq,
+                     **train)
+
+
+def _algo_api(api_cls, config_cls, parts, comm_round, freq=10**9,
+              config=None, **train):
+    """An API of the FedAvg family on the main path's configuration
+    (``config`` adds fields of its config, ``train`` overrides fields of its
+    TrainConfig)."""
     ds, model, task, tc = parts
-    return FedAvgAPI(ds, model, task=task, device="cuda", config=FedAvgConfig(
+    return api_cls(ds, model, task=task, device="cuda", config=config_cls(
         comm_round=comm_round, client_num_per_round=HEADLINE[0],
-        frequency_of_the_test=freq, train=dataclasses.replace(tc, **train)))
+        frequency_of_the_test=freq, train=dataclasses.replace(tc, **train),
+        **(config or {})))
 
 
 def _spread(xs):
@@ -1353,23 +1393,31 @@ def phase_fused_path():
             "timing": _host_vs_fused_timing(parts)}
 
 
-def _host_vs_fused_timing(parts, compute_dtype=None, reps=3):
+def _host_vs_fused_timing(parts, compute_dtype=None, reps=3,
+                          make_api=None, label=None):
     """rounds/s of the host loop and of fused blocks (median and spread of
     ``reps`` runs over the same rounds), each round's launches and device
-    time under the profiler, the graphs' capture time and pool bytes."""
+    time under the profiler, the graphs' capture time and pool bytes.
+    ``make_api(parts, comm_round, **train)`` builds the API (FedAvg's by
+    default)."""
     import torch
     from fedml_tpu_torch.ops import aggregate
 
+    make_api = make_api or _main_api
     first, timed = 2, 2 * FUSED_R
     span = range(first, first + timed)
-    host = _main_api(parts, first + timed, compute_dtype=compute_dtype)
+    host = make_api(parts, first + timed, compute_dtype=compute_dtype)
     for r in range(first):
         host.run_round(r)
     host_rps = _rounds_per_s(lambda: [host.run_round(r) for r in span],
                              timed, reps)
+    # the first two timed rounds under the profiler (two cohorts; their
+    # ~8,000 launches a round make the trace's processing the slowest part
+    # of this phase): the busy share takes their mean device time against
+    # the rate over all the timed rounds
     host_prof = _profile(lambda: [host.run_round(r) for r in span[:2]], 2)
 
-    api = _main_api(parts, first + timed, compute_dtype=compute_dtype)
+    api = make_api(parts, first + timed, compute_dtype=compute_dtype)
     fused = api.fused_rounds()
 
     def blocks():
@@ -1421,7 +1469,7 @@ def _host_vs_fused_timing(parts, compute_dtype=None, reps=3):
                          "wmean_kernels": capture_prof["wmean_kernels"],
                          "driver_wmean_launches": counted,
                          "captures": len(fresh.graphs)}}}
-    label = compute_dtype or "f32"
+    label = label or compute_dtype or "f32"
     for name, rec in (("host loop", out), ("fused", out["fused"])):
         rps = rec["rounds_per_s"]
         log(f"{label} {name}: {rps['median']:.3f} rounds/s (min "
@@ -1625,6 +1673,287 @@ def phase_lm_bf16():
             "card_vs_cpu_max_abs_diff": diff}
 
 
+def _fedopt_api(parts, comm_round, freq=10**9, server_optimizer="adam",
+                server_lr=FEDOPT_LR, **train):
+    from fedml_tpu_torch.algorithms.fedopt import FedOptAPI, FedOptConfig
+    return _algo_api(FedOptAPI, FedOptConfig, parts, comm_round, freq,
+                     dict(server_optimizer=server_optimizer,
+                          server_lr=server_lr), **train)
+
+
+def _max_diff(a, b) -> float:
+    """Largest absolute difference between two nests of tensors."""
+    import torch.utils._pytree as pytree
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{len(la)} leaves against {len(lb)}")
+    return max(float((x.double().cpu() - y.double().cpu()).abs().max())
+               for x, y in zip(la, lb))
+
+
+def _launch_run(module, argv, name):
+    """``module.main(argv)`` with the aggregation kernel's count set to 0
+    just before and read just after; returns (final record, launches,
+    captures, metrics records, wall s)."""
+    import torch
+    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.parallel.graphs import CapturedRound
+    from fedml_tpu_torch.utils.metrics import read_metrics
+
+    run_dir = os.path.join(ROOT, "runs", name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    captures = CapturedRound.captures
+    aggregate.weighted_mean_flat.launches = 0
+    t = time.perf_counter()
+    final = module.main(argv + ["--run_dir", run_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (final, aggregate.weighted_mean_flat.launches,
+            CapturedRound.captures - captures, read_metrics(run_dir), wall)
+
+
+def _check_evals(name, recs, rounds, falls=True):
+    """Every eval record finite, at the expected rounds, and (``falls``)
+    the test loss lower at the last than at the first."""
+    if [r["round"] for r in recs] != rounds:
+        raise AssertionError(f"{name}: eval rounds {[r['round'] for r in recs]}"
+                             f", want {rounds}")
+    for r in recs:
+        for k, v in r.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                raise AssertionError(f"{name} round {r['round']}: {k}={v}")
+    if falls and not recs[-1]["test_loss"] < recs[0]["test_loss"]:
+        raise AssertionError(f"{name}: test loss did not fall: "
+                             f"{recs[0]['test_loss']} -> "
+                             f"{recs[-1]['test_loss']}")
+
+
+def phase_fedopt_path():
+    """FedOpt-adam on the CNN through ``fed_launch.main``, host loop and
+    fused blocks: launches, the fused block against the host loop (params
+    and server state), server SGD at lr 1 against FedAvg, and rounds/s."""
+    import torch
+    from fedml_tpu_torch.experiments import fed_launch
+
+    rounds = 2 * FUSED_R
+    flags = ["--algo", "fedopt", *MAIN_FLAGS, "--server_optimizer", "adam",
+             "--server_lr", str(FEDOPT_LR), "--comm_round", str(rounds),
+             "--frequency_of_the_test", str(FUSED_R)]
+    out = {}
+    for label, extra in (("host", []),
+                         ("fused", ["--fused_rounds", str(FUSED_R)])):
+        _, launches, captures, recs, wall = _launch_run(
+            fed_launch, flags + extra, f"chip_smoke_fedopt_{label}")
+        # one launch a round; a capture's warm-up round adds one, the
+        # capture itself none
+        if (label == "fused") != bool(captures) or \
+                launches != rounds + captures:
+            raise AssertionError(f"fedopt {label}: {launches} aggregation "
+                                 f"launches in {rounds} rounds and "
+                                 f"{captures} captures")
+        _check_evals(f"fedopt {label}", recs, [0, FUSED_R, rounds - 1])
+        out[label] = {"launches": launches, "captures": captures,
+                      "evals": recs, "wall_s": wall}
+        log(f"fedopt-adam {label} through fed_launch: {rounds} rounds, "
+            f"{captures} captures, {launches} aggregation launches, test "
+            f"loss {recs[0]['test_loss']:.4f} -> {recs[-1]['test_loss']:.4f}"
+            f" (wall {wall:.1f}s with data build, capture and eval)")
+
+    parts = _main_api_parts()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        host, fused_api = (_fedopt_api(parts, FUSED_R) for _ in range(2))
+        for r in range(FUSED_R):
+            host.run_round(r)
+        fused_api.fused_rounds().run_rounds(0, FUSED_R)
+        diff = _max_diff((host.variables, host.server_opt_state),
+                         (fused_api.variables, fused_api.server_opt_state))
+        if int(fused_api.server_opt_state["count"]) != FUSED_R:
+            raise AssertionError("fused server adam count "
+                                 f"{fused_api.server_opt_state['count']}")
+        sgd = _fedopt_api(parts, 1, server_optimizer="sgd", server_lr=1.0)
+        avg = _main_api(parts, 1)
+        sgd.run_round(0)
+        avg.run_round(0)
+        sgd_diff = _max_diff(sgd.variables, avg.variables)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if not diff <= 1e-6:
+        raise AssertionError(f"fedopt fused block vs host loop: {diff}")
+    if not sgd_diff <= FEDOPT_SGD_TOL:
+        raise AssertionError(f"fedopt sgd lr 1 vs fedavg: {sgd_diff}")
+    log(f"fedopt fused block == host loop over {FUSED_R} rounds (params and "
+        f"adam state): max abs diff {diff:.3g} (bound 1e-6); server sgd at "
+        f"lr 1 vs fedavg after a round: {sgd_diff:.3g} (bound "
+        f"{FEDOPT_SGD_TOL})")
+    out.update(fused_vs_host_max_abs_diff=diff, sgd_vs_fedavg=sgd_diff,
+               timing=_host_vs_fused_timing(parts, make_api=_fedopt_api,
+                                            label="fedopt-adam f32"))
+    return out
+
+
+def _hierarchical_launches(seed, group_num, group_rounds, rounds):
+    """The aggregation launches hierarchical FedAvg makes: a group round a
+    launch for every group with sampled clients, and the global mean."""
+    from fedml_tpu_torch.core.sampling import (locked_global_numpy_rng,
+                                               sample_clients)
+    n, k = MAIN_CLIENTS, HEADLINE[0]
+    with locked_global_numpy_rng(seed) as rng:
+        groups = rng.randint(0, group_num, n)
+    return sum(len({int(groups[c]) for c in sample_clients(r, n, k)})
+               * group_rounds + 1 for r in range(rounds))
+
+
+def phase_slice_algorithms():
+    """The rest of the slice through ``fed_launch.main`` on the card: the
+    robust defenses, FedNova, hierarchical and secure aggregation on the
+    CNN, centralized, decentralized and contribution on LR; launches,
+    finite metrics and a falling loss where the JAX tests assert one."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg_robust import (FedAvgRobustAPI,
+                                                          FedAvgRobustConfig)
+    from fedml_tpu_torch.experiments import fed_launch
+    from fedml_tpu_torch.ops import aggregate
+
+    rounds = SLICE_ROUNDS
+    cnn = MAIN_FLAGS + ["--comm_round", str(rounds),
+                        "--frequency_of_the_test", str(rounds - 1)]
+    evals = [0, rounds - 1]
+    out = {}
+
+    def run(name, algo, flags, launches, falls=True, eval_rounds=evals):
+        final, got, _, recs, wall = _launch_run(
+            fed_launch, ["--algo", algo, *flags], f"chip_smoke_{name}")
+        if got != launches:
+            raise AssertionError(f"{name}: {got} aggregation launches, "
+                                 f"want {launches}")
+        if eval_rounds is not None:
+            _check_evals(name, recs, eval_rounds, falls)
+        out[name] = {"launches": got, "final": final, "wall_s": wall}
+        loss = (f"test loss {recs[0]['test_loss']:.4f} -> "
+                f"{recs[-1]['test_loss']:.4f}, "
+                if eval_rounds is not None else "")
+        log(f"{name}: {loss}{got} aggregation launches (wall {wall:.1f}s)")
+        return final
+
+    for defense in ROBUST_DEFENSES:
+        rule = defense in ("median", "trimmed_mean", "krum")
+        # weak_dp adds noise to every client (the JAX test asserts only
+        # that it does); Krum keeps one client's model
+        run(f"robust_{defense}", "fedavg_robust",
+            cnn + ["--defense_type", defense], 0 if rule else rounds,
+            falls=defense not in ("weak_dp", "krum"))
+    run("fednova", "fednova", cnn + ["--gmf", "0.5"], rounds)
+    run("hierarchical", "hierarchical",
+        cnn + ["--group_num", "2", "--group_comm_round", "2"],
+        _hierarchical_launches(0, 2, 2, rounds))
+    run("turboaggregate", "turboaggregate",
+        MAIN_FLAGS + ["--comm_round", "2", "--frequency_of_the_test", "1"],
+        0, eval_rounds=[0, 1])
+    lr_flags = ["--dataset", "blob", "--client_num_in_total", "8",
+                "--client_num_per_round", "4", "--batch_size", "16",
+                "--lr", "0.1", "--device", "cuda"]
+    cent = run("centralized", "centralized",
+               lr_flags + ["--comm_round", str(rounds)], 0, eval_rounds=None)
+    if not cent["test_acc"] > 0.8:
+        raise AssertionError(f"centralized: {cent}")
+    regrets = [run(f"decentralized_{t}", "decentralized",
+                   lr_flags + ["--comm_round", str(t)], 0,
+                   eval_rounds=None)["regret"] for t in (20, 200)]
+    if not all(map(math.isfinite, regrets)) or not regrets[1] < regrets[0]:
+        raise AssertionError(f"decentralized regret over 20 and 200 "
+                             f"iterations: {regrets}")
+    loo = run("contribution", "contribution",
+              lr_flags + ["--client_num_in_total", "4", "--comm_round", "2"],
+              5 * 2, eval_rounds=None)
+    if not all(math.isfinite(v) and v >= 0 for v in loo["influence"]):
+        raise AssertionError(f"contribution: {loo}")
+
+    # weak DP's noise in a captured round: the host loop's bits
+    parts = _main_api_parts()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        host, fused_api = (_algo_api(
+            FedAvgRobustAPI, FedAvgRobustConfig, parts, FUSED_R,
+            config=dict(defense_type="weak_dp")) for _ in range(2))
+        for r in range(FUSED_R):
+            host.run_round(r)
+        aggregate.weighted_mean_flat.launches = 0
+        fused = fused_api.fused_rounds()
+        fused.run_rounds(0, FUSED_R)
+        launches = aggregate.weighted_mean_flat.launches
+        diff = _max_diff(host.variables, fused_api.variables)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if launches != FUSED_R + len(fused.graphs) or not diff <= 1e-6:
+        raise AssertionError(f"weak_dp fused block: {launches} launches, "
+                             f"max abs diff {diff} against the host loop")
+    log(f"weak_dp fused block == host loop over {FUSED_R} rounds: max abs "
+        f"diff {diff:.3g} (bound 1e-6), {launches} aggregation launches")
+    out["weak_dp_fused"] = {"launches": launches, "max_abs_diff": diff}
+    return out
+
+
+def phase_slice_card_vs_cpu():
+    """One LR round of FedOpt (adam), FedNova (momentum, the proximal term,
+    server momentum) and robust median on the card and on the CPU from the
+    same weights (TF32 off)."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg_robust import (FedAvgRobustAPI,
+                                                          FedAvgRobustConfig)
+    from fedml_tpu_torch.algorithms.fednova import FedNovaAPI, FedNovaConfig
+    from fedml_tpu_torch.algorithms.fedopt import FedOptAPI, FedOptConfig
+    from fedml_tpu_torch.data.synthetic import make_blob_federated
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    ds = make_blob_federated(client_num=8, seed=0)
+    tc = dict(epochs=2, batch_size=16, lr=0.1, shuffle=False)
+    cases = {
+        "fedopt": lambda d: FedOptAPI(
+            ds, create_model("lr", ds.class_num, input_shape=(20,)),
+            device=d, config=FedOptConfig(
+                comm_round=1, client_num_per_round=4, prefetch_depth=0,
+                server_optimizer="adam", server_lr=0.01,
+                train=TrainConfig(**tc))),
+        "fednova": lambda d: FedNovaAPI(
+            ds, create_model("lr", ds.class_num, input_shape=(20,)),
+            device=d, config=FedNovaConfig(
+                comm_round=1, client_num_per_round=4, gmf=0.5, mu=0.01,
+                train=TrainConfig(momentum=0.9, **tc))),
+        "robust_median": lambda d: FedAvgRobustAPI(
+            ds, create_model("lr", ds.class_num, input_shape=(20,)),
+            device=d, config=FedAvgRobustConfig(
+                comm_round=1, client_num_per_round=5, prefetch_depth=0,
+                defense_type="median", train=TrainConfig(**tc)))}
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, make in cases.items():
+            apis = [make(d) for d in ("cuda", "cpu")]
+            if _max_diff(apis[0].variables, apis[1].variables) != 0:
+                raise AssertionError(f"{name}: initial weights differ")
+            for api in apis:
+                api.run_round(0)
+            state = [(a.variables, getattr(a, "server_opt_state", {}),
+                      getattr(a, "momentum_buf", {})) for a in apis]
+            out[name] = _max_diff(*state)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    bad = {k: v for k, v in out.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"LR rounds card vs CPU: {bad}")
+    log("LR rounds, card vs CPU (params and server state), max abs diff: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in out.items()) + " (atol 1e-5)")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1643,6 +1972,9 @@ def main() -> None:
     record["quant"] = phase_quant_vs_plain()
     record["silo_path"] = phase_cross_silo_path()
     record["silo_card_vs_cpu"] = phase_cross_silo_card_vs_cpu()
+    record["fedopt_path"] = phase_fedopt_path()
+    record["slice_algorithms"] = phase_slice_algorithms()
+    record["slice_card_vs_cpu"] = phase_slice_card_vs_cpu()
     k = record["kernel"]
     kernels = [{
         "name": "wmean_f32", "route": "cuda",
@@ -1651,6 +1983,10 @@ def main() -> None:
         "launches": record["main_path"]["launches"],
         "launches_fused": record["fused_path"]["launches"],
         "launches_fused_bf16": record["fused_bf16"]["launches"],
+        "launches_fedopt": record["fedopt_path"]["host"]["launches"],
+        "launches_fedopt_fused": record["fedopt_path"]["fused"]["launches"],
+        "launches_slice": {k: v["launches"] for k, v in
+                           record["slice_algorithms"].items()},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]

@@ -72,6 +72,17 @@ def _normalized(stats, prefix: str) -> Dict[str, float]:
     }
 
 
+def device_weighted_mean(device: torch.device):
+    """The sample-weighted state-dict mean ``mean(stacked, weights)`` that
+    the FedAvg family aggregates with on ``device``: on a CUDA device the
+    hand-written kernel over the whole ``[clients, params]`` stack, one
+    launch (ops/aggregate.py); on the CPU the plain per-leaf mean."""
+    if device.type == "cuda":
+        from fedml_tpu_torch.ops.aggregate import tree_weighted_mean_fused
+        return tree_weighted_mean_fused
+    return pt.tree_weighted_mean
+
+
 @dataclasses.dataclass(frozen=True)
 class FedAvgConfig:
     """Round-level knobs (reference argparse: --comm_round
@@ -128,19 +139,12 @@ class FedAvgAPI:
         cfg = self.config.train
         self._local_train = make_local_train(module, task, cfg)
         validate_accum_steps(cfg, dataset.train_data_local_num_dict)
+        self._mean = device_weighted_mean(self.device)
         if aggregate_hook is not None:
             self._hook = aggregate_hook
-        elif self.device.type == "cuda":
-            # the hand-written kernel over the whole [clients, params]
-            # stack, one launch per round (ops/aggregate.py)
-            from fedml_tpu_torch.ops.aggregate import tree_weighted_mean_fused
-
-            def hook(variables, stacked, weights, agg_seed):
-                return tree_weighted_mean_fused(stacked, weights)
-            self._hook = hook
         else:
             def hook(variables, stacked, weights, agg_seed):
-                return pt.tree_weighted_mean(stacked, weights)
+                return self._mean(stacked, weights)
             self._hook = hook
         self._eval_fn = make_eval(module, task)
         self._n_pad = dataset.padded_len(cfg.batch_size)
@@ -320,12 +324,19 @@ class FedAvgAPI:
         idxs, (x, y, mask, weights, plan, agg_seed) = \
             self._host_round_inputs(round_idx)
         with self.timer.phase("dispatch"):
-            self.variables, stats = self._round_fn(
-                self.variables, x, y, mask, weights, plan, agg_seed,
+            stats = self._dispatch(
+                x, y, mask, weights, plan, agg_seed,
                 round_lr_scale(self.config.train, round_idx, self.device))
         self.timer.end_round(round_idx,
                              extra={"cohort": [int(i) for i in idxs]})
         return idxs, stats
+
+    def _dispatch(self, x, y, mask, weights, plan, agg_seed, lr_scale):
+        """Run one round's device work on the server state and return its
+        stats (subclasses carrying more server state override this)."""
+        self.variables, stats = self._round_fn(
+            self.variables, x, y, mask, weights, plan, agg_seed, lr_scale)
+        return stats
 
     def fused_rounds(self, device_sampling: bool = False) -> "FusedRounds":
         """The fused multi-round driver PAIRED with this API class

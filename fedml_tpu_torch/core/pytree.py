@@ -9,11 +9,38 @@ aggregation front end rely on.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
 StateDict = Dict[str, torch.Tensor]
+
+
+def tree_zeros_like(tree: StateDict) -> StateDict:
+    """Zeros of every leaf's shape and dtype."""
+    return {k: torch.zeros_like(v) for k, v in tree.items()}
+
+
+def tree_scale(tree: StateDict, s) -> StateDict:
+    """Leafwise ``x * s``."""
+    return {k: v * s for k, v in tree.items()}
+
+
+def tree_axpy(a, x: StateDict, y: StateDict) -> StateDict:
+    """Leafwise ``a * x + y``."""
+    return {k: a * x[k] + y[k] for k in x}
+
+
+def tree_dot(a: StateDict, b: StateDict) -> torch.Tensor:
+    """Sum of elementwise products across the whole state dict (a 0-dim
+    tensor), summed leaf by leaf in leaf order."""
+    dots = [torch.vdot(a[k].reshape(-1), b[k].reshape(-1)) for k in a]
+    return torch.stack(dots).sum() if dots else torch.zeros(())
+
+
+def tree_norm(tree: StateDict) -> torch.Tensor:
+    """Global L2 norm over all leaves."""
+    return torch.sqrt(tree_dot(tree, tree))
 
 
 def tree_weighted_mean(stacked: StateDict, weights: torch.Tensor) -> StateDict:
@@ -29,6 +56,11 @@ def tree_weighted_mean(stacked: StateDict, weights: torch.Tensor) -> StateDict:
         return (x * w).sum(dim=0) / total.to(x.dtype)
 
     return {k: leaf_mean(v) for k, v in stacked.items()}
+
+
+def tree_mean(stacked: StateDict) -> StateDict:
+    """Unweighted mean over the leading axis of every leaf."""
+    return {k: v.mean(dim=0) for k, v in stacked.items()}
 
 
 def tree_add(a: StateDict, b: StateDict) -> StateDict:
@@ -73,6 +105,20 @@ def tree_stack(trees: Sequence[StateDict]) -> StateDict:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+def tree_unstack(stacked: StateDict, n: int) -> List[StateDict]:
+    """Inverse of :func:`tree_stack`: a list of ``n`` state dicts."""
+    return [tree_index(stacked, i) for i in range(n)]
+
+
+def tree_index(stacked: StateDict, i) -> StateDict:
+    """Slice client ``i`` out of a stacked state dict."""
+    return {k: v[i] for k, v in stacked.items()}
+
+
+def tree_cast(tree: StateDict, dtype) -> StateDict:
+    return {k: v.to(dtype) for k, v in tree.items()}
+
+
 def tree_size(tree: StateDict) -> int:
     """Total number of scalars in the state dict."""
     return sum(v.numel() for v in tree.values())
@@ -93,3 +139,16 @@ def tree_unravel(tree_like: StateDict, flat: torch.Tensor) -> StateDict:
         out[k] = flat[off:off + n].reshape(leaf.shape).to(leaf.dtype)
         off += n
     return out
+
+
+def tree_map_with_path_filter(fn: Callable, tree: StateDict,
+                              predicate: Callable[[str], bool]) -> StateDict:
+    """Apply ``fn`` only to the leaves whose name satisfies ``predicate``;
+    the other leaves pass through unchanged. Names are the state dict's
+    dotted module paths (``conv1.weight``, ``bn.running_mean``), where the
+    JAX package's filter sees flax's ``/``-joined key paths. With
+    ``core.robust.is_weight_param`` as the predicate it is the reference's
+    weight-param filter (robust_aggregation.py:28-36); the defenses in
+    ``core/robust.py`` apply that predicate in their own loops, since a
+    clipped or noised leaf needs its name and position as well."""
+    return {k: fn(v) if predicate(k) else v for k, v in tree.items()}

@@ -58,3 +58,11 @@ TASK_HEADS: Dict[str, TaskHead] = {
     "classification": classification_head,
     "nwp": nwp_head,
 }
+
+
+def stats_to_metrics(stats: Stats, prefix: str = "test") -> Dict[str, float]:
+    """Stat sums -> the reference metrics dict (MyModelTrainer.test:
+    test_correct / test_loss / test_total)."""
+    return {f"{prefix}_correct": float(stats["correct_sum"]),
+            f"{prefix}_loss": float(stats["loss_sum"]),
+            f"{prefix}_total": float(stats["count"])}

@@ -13,6 +13,12 @@ paths). Leaves by layer type:
 
 Every shape is checked against the model, and an unknown or missing key
 raises, so a layout drift can never load silently.
+
+A params-shaped tree of the JAX package's other state (FedNova's momentum
+buffer, an optimizer moment) converts as ``flax_to_state_dict({"params":
+tree}, model)``; :func:`optax_state_to_port` converts a whole optax
+optimizer state into the port's server optimizer state
+(``algorithms/fedopt.py``).
 """
 
 from __future__ import annotations
@@ -103,4 +109,33 @@ def flax_to_state_dict(variables: Mapping[str, Any],
     if missing:
         raise KeyError(f"state dict keys without a flax source: "
                        f"{sorted(missing)}")
+    return out
+
+
+def optax_state_to_port(state, model: torch.nn.Module) -> Dict[str, Any]:
+    """An optax state over flax params -> the port's optimizer state: the
+    fields of every state tuple in the (nested) chain state merged into
+    one dict under optax's field names. A params-shaped field becomes a
+    list of tensors in ``model.named_parameters()`` order; a scalar field
+    (``count``) a 0-dim tensor of its dtype. ``EmptyState`` adds
+    nothing."""
+    names = [n for n, _ in model.named_parameters()]
+    out: Dict[str, Any] = {}
+
+    def walk(node):
+        if hasattr(node, "_fields"):
+            for field in node._fields:
+                value = getattr(node, field)
+                if isinstance(value, Mapping):
+                    sd = flax_to_state_dict({"params": value}, model)
+                    out[field] = [sd[n] for n in names]
+                else:
+                    out[field] = torch.from_numpy(np.array(value))
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+        else:
+            raise ValueError(f"unknown optax state node {type(node)}")
+
+    walk(state)
     return out

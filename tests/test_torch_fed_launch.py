@@ -1,0 +1,120 @@
+"""The port's fed_launch: every ported ``--algo`` runs end to end on the
+CPU through ``main`` (LR on blob, a few rounds), every unported one raises
+naming its ROADMAP item before anything is built, and ``--fused_rounds``
+takes the fused driver where the API has one and the host loop, with a
+warning, where it has none.
+"""
+
+import logging
+import pickle
+
+import numpy as np
+import pytest
+
+from fedml_tpu_torch.experiments import fed_launch
+from fedml_tpu_torch.utils.metrics import read_metrics
+
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+BASE = ["--dataset", "blob", "--client_num_in_total", "6",
+        "--client_num_per_round", "3", "--comm_round", "3",
+        "--frequency_of_the_test", "2", "--batch_size", "16", "--lr", "0.1",
+        "--device", "cpu"]
+
+PORTED = {
+    "fedavg": [], "fedavg_cross_silo": [],
+    "fedopt": ["--server_optimizer", "yogi", "--server_lr", "0.05"],
+    "fednova": ["--gmf", "0.5", "--prox_mu", "0.01"],
+    "fedavg_robust": ["--defense_type", "median"],
+    "hierarchical": ["--group_num", "2", "--group_comm_round", "2"],
+    "turboaggregate": ["--frac_bits", "20"],
+    "centralized": [],
+    "decentralized": ["--mode", "PUSHSUM"],
+    "contribution": ["--comm_round", "2", "--client_num_in_total", "4"],
+}
+
+
+def test_every_algo_is_ported_or_names_its_item():
+    assert set(PORTED) | set(fed_launch.NOT_PORTED) == set(fed_launch.ALGOS)
+    assert not set(PORTED) & set(fed_launch.NOT_PORTED)
+
+
+@pytest.mark.parametrize("algo", sorted(PORTED))
+def test_ported_algo_runs_on_the_cpu(algo, tmp_path):
+    run_dir = tmp_path / "run"
+    final = fed_launch.main(["--algo", algo, *BASE, *PORTED[algo],
+                             "--run_dir", str(run_dir)])
+    assert final
+    if algo == "decentralized":
+        assert np.isfinite(final["regret"]) and final["regret"] > 0
+        assert np.isfinite(final["consensus_distance"])
+    elif algo == "contribution":
+        assert len(final["influence"]) == 4
+        assert sorted(final["ranked"]) == [0, 1, 2, 3]
+    elif algo == "centralized":
+        assert final["test_acc"] > 0.8, final
+    else:
+        assert np.isfinite(final["test_loss"])
+        assert final["test_acc"] > 0.5, final
+    assert read_metrics(str(run_dir))
+
+
+@pytest.mark.parametrize("algo", sorted(fed_launch.NOT_PORTED))
+def test_unported_algo_names_its_item(algo, tmp_path):
+    item = fed_launch.NOT_PORTED[algo]
+    with pytest.raises(NotImplementedError, match=item):
+        fed_launch.main(["--algo", algo, *BASE,
+                         "--run_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("argv, err, match", [
+    (["--algo", "fedavg", "--backend", "spmd"], NotImplementedError,
+     "item 26"),
+    (["--algo", "fedavg", "--checkpoint_dir", "ck"], NotImplementedError,
+     "item 24"),
+    (["--algo", "fedavg_cross_silo", "--fused_rounds", "2"], ValueError,
+     "fused_rounds")])
+def test_unported_flags_raise_before_anything_is_built(argv, err, match,
+                                                       tmp_path):
+    with pytest.raises(err, match=match):
+        fed_launch.main([*argv, *BASE, "--run_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+def test_fused_fedopt_equals_its_host_loop(tmp_path):
+    argv = ["--algo", "fedopt", *BASE, "--server_optimizer", "adam",
+            "--server_lr", "0.05"]
+    host = fed_launch.main([*argv, "--run_dir", str(tmp_path / "host")])
+    fused = fed_launch.main([*argv, "--fused_rounds", "2",
+                             "--run_dir", str(tmp_path / "fused")])
+    for k in ("test_acc", "test_loss", "train_loss"):
+        assert host[k] == fused[k], k
+    assert ([r["round"] for r in read_metrics(str(tmp_path / "fused"))]
+            == [0, 2])
+
+
+def test_fused_rounds_without_a_fused_driver_warns(tmp_path, caplog):
+    with caplog.at_level(logging.WARNING):
+        final = fed_launch.main(["--algo", "turboaggregate", *BASE,
+                                 "--fused_rounds", "2",
+                                 "--run_dir", str(tmp_path / "run")])
+    assert "using the host loop" in caplog.text
+    assert np.isfinite(final["test_loss"])
+
+
+def test_robust_with_poisoned_artifacts_reports_backdoor_asr(tmp_path):
+    rng = np.random.RandomState(1)
+    paths = []
+    for name, n in (("train.pkl", 30), ("test.pkl", 12)):
+        p = tmp_path / name
+        with open(p, "wb") as f:
+            pickle.dump(rng.rand(n, 20).astype(np.float32), f)
+        paths.append(str(p))
+    final = fed_launch.main([
+        "--algo", "fedavg_robust", *BASE, "--defense_type", "weak_dp",
+        "--poison_pkl", paths[0], "--poison_test_pkl", paths[1],
+        "--attacker_client", "1", "--target_label", "3",
+        "--poison_num_edge", "10", "--poison_num_clean", "20",
+        "--run_dir", str(tmp_path / "run")])
+    assert 0.0 <= final["backdoor_asr"] <= 1.0

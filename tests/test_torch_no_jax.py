@@ -56,9 +56,23 @@ _, hist = run_fedavg_cross_silo(
     bds, create_model("lr", bds.class_num, input_shape=(20,)), worker_num=2,
     comm_round=1, train_cfg=TrainConfig(batch_size=16, lr=0.1),
     compression="topk_ef_int8:0.1", device="cpu")
+# the rest of the FedAvg family through fed_launch
+from fedml_tpu_torch.experiments import fed_launch
+algos = {}
+for algo, extra in (("fedopt", ["--fused_rounds", "1"]),
+                    ("fedavg_robust", ["--defense_type", "weak_dp"]),
+                    ("fednova", []), ("hierarchical", []),
+                    ("turboaggregate", []), ("centralized", []),
+                    ("decentralized", []), ("contribution", [])):
+    algos[algo] = sorted(fed_launch.main([
+        "--algo", algo, "--dataset", "blob", "--client_num_in_total", "4",
+        "--client_num_per_round", "2", "--comm_round", "1",
+        "--batch_size", "16", "--device", "cpu", *extra,
+        "--run_dir", sys.argv[1] + "/" + algo]))
 print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
                   "lm_tokens": float(stats["count"]),
-                  "silo_rounds": [r["round"] for r in hist]}))
+                  "silo_rounds": [r["round"] for r in hist],
+                  "algos": algos}))
 """
 
 
@@ -74,9 +88,21 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     assert out["round"] == 0
     assert out["lm_tokens"] > 0
     assert out["silo_rounds"] == [0]
+    assert sorted(out["algos"]) == sorted(
+        ["fedopt", "fedavg_robust", "fednova", "hierarchical",
+         "turboaggregate", "centralized", "decentralized", "contribution"])
+    assert "regret" in out["algos"]["decentralized"]
+    assert "influence" in out["algos"]["contribution"]
     for m in ("ops.aggregate", "ops.flash_attention", "models.transformer",
               "ops.quantize", "comm.compression",
-              "algorithms.fedavg_cross_silo"):
+              "algorithms.fedavg_cross_silo", "algorithms.fedopt",
+              "algorithms.fedavg_robust", "algorithms.fednova",
+              "algorithms.hierarchical", "algorithms.turboaggregate",
+              "algorithms.centralized", "algorithms.decentralized",
+              "contribution.loo", "contribution.shap", "core.robust",
+              "core.mpc", "core.topology", "data.poisoned",
+              "trainer.torch_trainer", "trainer.model_trainer",
+              "experiments.fed_launch"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
     assert not bad, bad
