@@ -90,7 +90,37 @@
    aggregation launches and a falling loss where the JAX tests assert one;
 13. runs one LR round of FedOpt, FedNova and robust median on the card and
    on the CPU from the same weights (TF32 off) and compares the parameters
-   and server state.
+   and server state;
+14. holds the aggregation kernel against its plain version at the
+   cross-device anchors' D (ResNet-18-GN 11,220,132, ResNet-56 600,314
+   with its BN statistics, the StackOverflow LSTM 4,050,748, the char LSTM
+   820,522; 10 clients) and times it beside the plain version and
+   torch.mv;
+15. drives ResNet-18-GN (full width) on fed_cifar100_gen through
+   ``main_fedavg.main``: 3 host-loop rounds and 3 in fused blocks of 2
+   (500 clients, 10 a round, batch 20, lr 0.1), one aggregation launch a
+   round (one more a capture's warm-up), a falling test loss; a fused
+   block against the host loop (1e-6, cuDNN deterministic); rounds/s of
+   both (median and spread of 3 runs), device ms, busy share, each
+   graph's capture time and pool;
+16. the same for ResNet-56 with its BatchNorm statistics on img_blob, 2
+   rounds each way (the statistics move over the rounds, the fused block
+   equals the host loop in params and statistics, rounds/s over blocks
+   of one round), and FedOpt-adam on it through ``fed_launch.main``,
+   whose statistics stay at FedAvg's plain average after a round (1e-6)
+   while its params move;
+17. drives the char LSTM on shakespeare_gen (715 clients) and the
+   StackOverflow LSTM on stackoverflow_nwp_gen (cut to 20,000 clients,
+   widths full) through ``main_fedavg.main`` for 2 rounds each (10
+   clients a round, batch 10): one launch a round, finite metrics, a
+   falling test loss; counts each one's launches a train step and the
+   gated steps of a fused round (the size of its graph), times the
+   Shakespeare host loop (it is not captured), and holds a fused block of
+   the StackOverflow LSTM to its host loop (1e-6) with rounds/s as in 16;
+18. runs one round of each new model at a cut size on the card and on the
+   CPU from the same weights (TF32 off) and compares the params and BN
+   statistics (atol 1e-4), beside the CPU round's drift from a 1e-7
+   relative perturbation of its params.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -157,6 +187,35 @@ BF16_VS_F32_MIN_FACTOR = 0.125
 # (tests/test_torch_mixed_precision.py, LM: rtol 1e-2, atol 1e-3, there
 # measured 1.4e-4), with twice the room for the flash kernels' bf16 path
 LM_BF16_TOL = dict(rtol=2e-2, atol=2e-3)
+# the cross-device anchors (phases 14-18): the aggregation kernel's D on
+# their paths (ResNet-56: 591,322 params + 8,992 BN statistics at 10
+# classes; the char LSTM: 820,522)
+ANCHOR_D = {"resnet18_gn": 11_220_132, "resnet56": 600_314,
+            "rnn_stackoverflow": 4_050_748, "rnn_seq": 820_522}
+ANCHOR_R = 2  # rounds a fused dispatch on the anchors' paths
+# ResNet-18-GN on fed_cifar100_gen at the JAX bench's round shape
+R18_FLAGS = ["--dataset", "fed_cifar100_gen", "--client_num_in_total", "500",
+             "--client_num_per_round", "10", "--batch_size", "20",
+             "--epochs", "1", "--lr", "0.1", "--eval_train_subsample",
+             "1000", "--device", "cuda"]
+# ResNet-56 (BatchNorm) on img_blob: 20 clients of 32 32x32 images
+IMG_FLAGS = ["--dataset", "img_blob", "--client_num_in_total", "20",
+             "--client_num_per_round", "10", "--batch_size", "10",
+             "--epochs", "1", "--lr", "0.05", "--device", "cuda"]
+# the LSTMs at full width; the StackOverflow federation cut from 342,477
+# clients (~6.9M sequences on the host) to SO_CLIENTS
+SO_CLIENTS = 20_000
+SH_FLAGS = ["--dataset", "shakespeare_gen", "--client_num_in_total", "715",
+            "--client_num_per_round", "10", "--batch_size", "10",
+            "--epochs", "1", "--lr", "1.0", "--eval_train_subsample",
+            "1000", "--device", "cuda"]
+SO_FLAGS = ["--dataset", "stackoverflow_nwp_gen", "--client_num_in_total",
+            str(SO_CLIENTS), "--client_num_per_round", "10",
+            "--batch_size", "10", "--epochs", "1", "--lr", "0.3",
+            "--eval_train_subsample", "1000", "--device", "cuda"]
+# one round of a cut anchor model, card against CPU, TF32 off: params and
+# BN statistics (the transformer round's bound, phase 7)
+ANCHOR_CPU_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -346,24 +405,10 @@ def phase_kernel_vs_plain():
     # timed call is the whole function from (stack, sample counts): the
     # wrapper's weight normalization (two tiny kernels) is in its time, and
     # in the plain version's and the library call's
-    c, d = HEADLINE
-    bufs = [stack(c, d, True) for _ in range(4)]
-    iters = 200
-    ms = cuda_time_ms(weighted_mean_flat, bufs, iters)
-    plain_ms = cuda_time_ms(weighted_mean_flat_reference, bufs, iters)
-    library_ms = cuda_time_ms(lambda x, w: torch.mv(x.t(), w / w.sum()),
-                              bufs, iters)
-    nbytes = 4 * (c * d + c + d)  # read x and w once, write out once
-    flops = 2 * c * d
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                >= flops / F32_FLOP_PER_S else "operations")
-    log(f"wmean [{c}, {d}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.mv {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB) -> {nbytes / ms / 1e6:.0f} GB/s")
-    return {"checks": checks, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    timing = _wmean_timed(*HEADLINE, gen, 4, 200)
+    return {"checks": checks, "max_abs_err": max_abs,
+            **{k: timing[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "bytes")}}
 
 
 def phase_main_path():
@@ -1258,16 +1303,21 @@ def _rounds_per_s(run, rounds, reps=3):
     return _spread(out)
 
 
-def _profile(run, rounds):
+def _profile(run, rounds, cpu_ops=True):
     """``run()`` under torch.profiler: device ms a round (the device's own
     events), launch calls a round, and the aggregation kernel's launches by
-    name in the device activity."""
+    name in the device activity. ``cpu_ops=False`` traces the CUDA activity
+    alone (the runtime's launch calls and the device's kernels, no operator
+    events on the host), for host rounds of tens of thousands of launches;
+    it is not used where kernels are counted: in a run of this script it
+    saw fewer of a fused block's aggregation kernels than ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu_ops
+            else [ProfilerActivity.CUDA])
+    with profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
     evs = prof.key_averages()
@@ -1369,20 +1419,9 @@ def phase_fused_path():
         f"{wall:.1f}s with data build, capture and eval)")
 
     # the same cohorts through the host loop and a fused block, shuffle
-    # and dropout on; cuDNN's deterministic algorithms, so that the two
-    # runs of the same convolutions give the same bits
+    # and dropout on
     parts = _main_api_parts()
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        host, fused_api = (_main_api(parts, FUSED_R) for _ in range(2))
-        for r in range(FUSED_R):
-            host.run_round(r)
-        fused_api.fused_rounds().run_rounds(0, FUSED_R)
-        diff = max(float((host.variables[k] - fused_api.variables[k])
-                         .abs().max()) for k in host.variables)
-    finally:
-        torch.backends.cudnn.deterministic = saved
+    diff, _ = _fused_vs_host(parts, FUSED_R)
     if not diff <= 1e-6:
         raise AssertionError(f"fused block vs host loop: max abs diff {diff}")
     log(f"fused block == host loop over {FUSED_R} rounds (shuffle, dropout "
@@ -1735,29 +1774,9 @@ def phase_fedopt_path():
     import torch
     from fedml_tpu_torch.experiments import fed_launch
 
-    rounds = 2 * FUSED_R
-    flags = ["--algo", "fedopt", *MAIN_FLAGS, "--server_optimizer", "adam",
-             "--server_lr", str(FEDOPT_LR), "--comm_round", str(rounds),
-             "--frequency_of_the_test", str(FUSED_R)]
-    out = {}
-    for label, extra in (("host", []),
-                         ("fused", ["--fused_rounds", str(FUSED_R)])):
-        _, launches, captures, recs, wall = _launch_run(
-            fed_launch, flags + extra, f"chip_smoke_fedopt_{label}")
-        # one launch a round; a capture's warm-up round adds one, the
-        # capture itself none
-        if (label == "fused") != bool(captures) or \
-                launches != rounds + captures:
-            raise AssertionError(f"fedopt {label}: {launches} aggregation "
-                                 f"launches in {rounds} rounds and "
-                                 f"{captures} captures")
-        _check_evals(f"fedopt {label}", recs, [0, FUSED_R, rounds - 1])
-        out[label] = {"launches": launches, "captures": captures,
-                      "evals": recs, "wall_s": wall}
-        log(f"fedopt-adam {label} through fed_launch: {rounds} rounds, "
-            f"{captures} captures, {launches} aggregation launches, test "
-            f"loss {recs[0]['test_loss']:.4f} -> {recs[-1]['test_loss']:.4f}"
-            f" (wall {wall:.1f}s with data build, capture and eval)")
+    out = _path_runs(fed_launch, "fedopt", [
+        "--algo", "fedopt", *MAIN_FLAGS, "--server_optimizer", "adam",
+        "--server_lr", str(FEDOPT_LR)], 2 * FUSED_R, FUSED_R, FUSED_R)
 
     parts = _main_api_parts()
     saved = torch.backends.cudnn.deterministic
@@ -1954,6 +1973,447 @@ def phase_slice_card_vs_cpu():
     return out
 
 
+# -- the cross-device anchors' models (phases 14-18) ------------------------
+
+def _wmean_timed(c, d, gen, copies, iters):
+    """The aggregation kernel at ``[c, d]`` against its plain version on
+    one stack, then kernel, plain version and ``torch.mv`` timed over
+    ``copies`` distinct stacks (the first phase's layout: row-padded
+    views, sample counts 20..400)."""
+    import torch
+    from fedml_tpu_torch.ops.aggregate import (weighted_mean_flat,
+                                               weighted_mean_flat_reference)
+
+    def stack():
+        buf = torch.randn(c, -(-d // 4) * 4, generator=gen, device="cuda")
+        w = torch.randint(20, 401, (c,), generator=gen,
+                          device="cuda").float()
+        return buf[:, :d], w
+    bufs = [stack() for _ in range(copies)]
+    x, w = bufs[0]
+    got = weighted_mean_flat(x, w)
+    want = weighted_mean_flat_reference(x, w)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **TOL):
+        raise AssertionError(f"wmean [{c}, {d}]: kernel disagrees with the "
+                             f"plain version (max abs {err})")
+    ms = cuda_time_ms(weighted_mean_flat, bufs, iters)
+    plain_ms = cuda_time_ms(weighted_mean_flat_reference, bufs, iters)
+    library_ms = cuda_time_ms(lambda x, w: torch.mv(x.t(), w / w.sum()),
+                              bufs, iters)
+    nbytes = 4 * (c * d + c + d)
+    flops = 2 * c * d
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                >= flops / F32_FLOP_PER_S else "operations")
+    del bufs
+    torch.cuda.empty_cache()
+    log(f"wmean [{c}, {d}]: kernel == plain (max abs {err:.3g}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mv {library_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.0f}% of it)")
+    return {"shape": [c, d], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+
+
+def phase_anchor_kernel():
+    """The aggregation kernel at the anchors' D: ResNet-18-GN, ResNet-56
+    (its params and BN statistics) and the StackOverflow LSTM."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    out = {}
+    for name, d in ANCHOR_D.items():
+        # distinct stacks past the 50 MB L2: 4 of the small ones, 2 of the
+        # 449 MB ResNet-18-GN stack
+        copies = 2 if d > 5_000_000 else 4
+        out[name] = _wmean_timed(HEADLINE[0], d, gen, copies,
+                                 40 if d > 5_000_000 else 200)
+    return out
+
+
+def _anchor_parts(flags):
+    """Dataset, model, task and TrainConfig from a path's flags, built once
+    for the APIs a phase drives directly."""
+    from fedml_tpu_torch.experiments import main_fedavg
+    args = main_fedavg.add_federated_args(
+        argparse.ArgumentParser()).parse_args(flags)
+    ds, model, task = main_fedavg.build_dataset_and_model(args)
+    return ds, model, task, main_fedavg.make_train_config(args)
+
+
+def _deterministic(fn):
+    """``fn()`` with cuDNN's deterministic algorithms, so that two runs of
+    the same convolutions give the same bits."""
+    import torch
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _fused_vs_host(parts, rounds, make_api=None):
+    """The same cohorts through the host loop and one fused block; the
+    largest difference of their variables (params and BN statistics) and
+    the two APIs."""
+    make_api = make_api or _main_api
+
+    def run():
+        host, fused_api = (make_api(parts, rounds) for _ in range(2))
+        for r in range(rounds):
+            host.run_round(r)
+        fused_api.fused_rounds().run_rounds(0, rounds)
+        return _max_diff(host.variables, fused_api.variables), host
+    return _deterministic(run)
+
+
+def _anchor_timing(parts, label, rounds=ANCHOR_R, reps=3):
+    """rounds/s of the host loop and of fused blocks of ``rounds`` rounds
+    (median and spread of ``reps`` runs over the same rounds), device ms a
+    round and launch calls under the profiler (the host round's of the CUDA
+    activity alone), the busy share, and each graph's capture time and
+    pool."""
+    from fedml_tpu_torch.ops import aggregate
+
+    span = range(1, 1 + rounds)
+    host = _main_api(parts, 1 + rounds)
+    host.run_round(0)
+    host_rps = _rounds_per_s(lambda: [host.run_round(r) for r in span],
+                             rounds, reps)
+    t = time.perf_counter()
+    host_prof = _profile(lambda: host.run_round(1), 1, cpu_ops=False)
+    host_prof["profile_s"] = time.perf_counter() - t
+    api = _main_api(parts, 1 + rounds)
+    fused = api.fused_rounds()
+    fused.run_rounds(1, rounds)  # captures every pad bucket's graph
+    fused_rps = _rounds_per_s(lambda: fused.run_rounds(1, rounds), rounds,
+                              reps)
+    before = aggregate.weighted_mean_flat.launches
+    fused_prof = _profile(lambda: fused.run_rounds(1, rounds), rounds)
+    driver = aggregate.weighted_mean_flat.launches - before
+    if not fused_prof["wmean_kernels"] == driver == rounds:
+        raise AssertionError(
+            f"{label}: a profiled fused block of {rounds} rounds: the "
+            f"profiler saw {fused_prof['wmean_kernels']} aggregation "
+            f"kernels, the driver counted {driver}")
+    graphs = [{"capture_s": g.capture_s, "pool_bytes": g.pool_bytes}
+              for g in fused.graphs.values()]
+    out = {"rounds_per_s": host_rps, **host_prof,
+           "busy_share": host_prof["device_ms_per_round"]
+           * host_rps["median"] / 1e3,
+           "fused": {"rounds_per_s": fused_rps, **fused_prof,
+                     "busy_share": fused_prof["device_ms_per_round"]
+                     * fused_rps["median"] / 1e3, "graphs": graphs}}
+    for name, rec in (("host loop", out), ("fused", out["fused"])):
+        rps = rec["rounds_per_s"]
+        log(f"{label} {name}: {rps['median']:.3f} rounds/s (min "
+            f"{rps['min']:.3f}, max {rps['max']:.3f}, {reps} runs of "
+            f"{rounds} rounds); device {rec['device_ms_per_round']:.2f} ms a "
+            f"round, busy {100 * rec['busy_share']:.1f}%; launch calls a "
+            f"round {rec['launch_calls_per_round']}")
+    log(f"{label}: the host round's profile took "
+        f"{host_prof['profile_s']:.1f} s; fused graphs (capture s, pool "
+        "MiB): "
+        + ", ".join(f"({g['capture_s']:.2f}, {g['pool_bytes'] / 2**20:.0f})"
+                    for g in graphs))
+    return out
+
+
+def _path_runs(module, name, flags, rounds, freq, fused_rounds,
+               falls=True):
+    """The path through ``module.main`` (``main_fedavg`` or ``fed_launch``):
+    ``rounds`` host-loop rounds, then as many in fused blocks of
+    ``fused_rounds``; one aggregation launch a round, and one more a
+    capture's warm-up round (the capture itself launches nothing)."""
+    out = {}
+    evals = sorted(set(range(0, rounds, freq)) | {rounds - 1})
+    for label, extra in (("host", []),
+                         ("fused", ["--fused_rounds", str(fused_rounds)])):
+        _, launches, captures, recs, wall = _launch_run(
+            module, flags + extra + [
+                "--comm_round", str(rounds), "--frequency_of_the_test",
+                str(freq)], f"chip_smoke_{name}_{label}")
+        if (label == "fused") != bool(captures) or \
+                launches != rounds + captures:
+            raise AssertionError(f"{name} {label}: {launches} aggregation "
+                                 f"launches in {rounds} rounds and "
+                                 f"{captures} captures")
+        _check_evals(f"{name} {label}", recs, evals, falls)
+        out[label] = {"launches": launches, "captures": captures,
+                      "evals": recs, "wall_s": wall}
+        log(f"{name} {label} through {module.__name__.split('.')[-1]}: "
+            f"{rounds} rounds, "
+            f"{captures} captures, {launches} aggregation launches, test "
+            f"loss {recs[0]['test_loss']:.4f} -> {recs[-1]['test_loss']:.4f}"
+            f", acc {recs[-1]['test_acc']:.4f} (wall {wall:.1f}s with data "
+            "build, capture and eval)")
+    return out
+
+
+def phase_resnet18_gn_path():
+    """ResNet-18-GN on fed_cifar100_gen at full width (11,220,132
+    parameters, 500 clients, 10 a round, batch 20, lr 0.1): host loop and
+    fused blocks through main_fedavg, a fused block against the host loop,
+    rounds/s."""
+    from fedml_tpu_torch.experiments import main_fedavg
+    out = _path_runs(main_fedavg, "resnet18_gn", R18_FLAGS, 3, 2, ANCHOR_R)
+    parts = _anchor_parts(R18_FLAGS)
+    diff, _ = _fused_vs_host(parts, ANCHOR_R)
+    if not diff <= 1e-6:
+        raise AssertionError(f"resnet18_gn fused block vs host loop: {diff}")
+    log(f"resnet18_gn fused block == host loop over {ANCHOR_R} rounds: max "
+        f"abs diff {diff:.3g} (bound 1e-6)")
+    out.update(fused_vs_host_max_abs_diff=diff,
+               timing=_anchor_timing(parts, "resnet18_gn"))
+    return out
+
+
+def _stats_of(variables):
+    return {k: v for k, v in variables.items() if "running_" in k}
+
+
+def phase_resnet56_path():
+    """ResNet-56 with its BN statistics on img_blob through main_fedavg
+    (host loop and fused), the statistics moving in a round, a fused block
+    against the host loop (params and statistics), and FedOpt-adam through
+    fed_launch with the statistics at the plain average."""
+    from fedml_tpu_torch.experiments import fed_launch, main_fedavg
+    out = _path_runs(main_fedavg, "resnet56", IMG_FLAGS, 2, 1, ANCHOR_R,
+                     falls=False)
+    parts = _anchor_parts(IMG_FLAGS)
+    diff, host = _fused_vs_host(parts, ANCHOR_R)
+    start = _stats_of(_main_api(parts, 1).variables)
+    moved = min(float((host.variables[k] - v).abs().max())
+                for k, v in start.items())
+    if not diff <= 1e-6 or not moved > 0:
+        raise AssertionError(f"resnet56: fused vs host loop {diff}, the "
+                             f"least-moved BN statistic {moved}")
+    log(f"resnet56: {len(start)} BN statistics, each moved over the rounds "
+        f"(least by {moved:.3g}); fused block == host loop over {ANCHOR_R} "
+        f"rounds, params and statistics: max abs diff {diff:.3g} (bound "
+        "1e-6)")
+    _, launches, _, recs, wall = _launch_run(fed_launch, [
+        "--algo", "fedopt", *IMG_FLAGS, "--server_optimizer", "adam",
+        "--server_lr", str(FEDOPT_LR), "--comm_round", "2",
+        "--frequency_of_the_test", "1"], "chip_smoke_resnet56_fedopt")
+    if launches != 2:
+        raise AssertionError(f"resnet56 fedopt: {launches} launches")
+    _check_evals("resnet56 fedopt", recs, [0, 1], falls=False)
+
+    def one_round():
+        apis = [_fedopt_api(parts, 1), _main_api(parts, 1)]
+        for api in apis:
+            api.run_round(0)
+        return [a.variables for a in apis]
+    opt_vars, avg_vars = _deterministic(one_round)
+    stats_diff = _max_diff(_stats_of(opt_vars), _stats_of(avg_vars))
+    params_diff = max(float((opt_vars[k] - avg_vars[k]).abs().max())
+                      for k in opt_vars if "running_" not in k)
+    if not stats_diff <= 1e-6 or not params_diff > 0:
+        raise AssertionError(f"resnet56 fedopt: stats {stats_diff} from "
+                             f"the plain average, params {params_diff}")
+    log(f"resnet56 fedopt-adam through fed_launch: 2 rounds, {launches} "
+        f"aggregation launches; after a round its BN statistics lie "
+        f"{stats_diff:.3g} from FedAvg's plain average (bound 1e-6), its "
+        f"params {params_diff:.3g} (the server's step)")
+    out.update(fused_vs_host_max_abs_diff=diff, least_stat_move=moved,
+               fedopt={"launches": launches, "evals": recs, "wall_s": wall,
+                       "stats_vs_plain_average": stats_diff,
+                       "params_vs_fedavg": params_diff},
+               timing=_anchor_timing(parts, "resnet56", rounds=1))
+    return out
+
+
+def _step_launches(parts):
+    """Launch calls of one train step of a path's model (a batch of its
+    first client, on the card), under the profiler: a captured round holds
+    about that many graph nodes for each of its gated steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fedml_tpu_torch.trainer.functional import (make_train_step,
+                                                    param_names)
+    ds, model, task, tc = parts
+    init, step = make_train_step(model, task, tc)
+    x, y, mask = (torch.from_numpy(a[0, :tc.batch_size]).cuda() for a in
+                  ds.pack_clients([0], tc.batch_size))
+    sd = {k: v.detach().cuda() for k, v in model.state_dict().items()}
+    trained = param_names(model)
+    names = [k for k in sd if k in trained]
+    params = [sd[k] for k in names]
+    colls = {k: v for k, v in sd.items() if k not in trained}
+    gate = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def one():
+        step(names, params, colls, init(params), x, y, mask,
+             torch.zeros((), dtype=torch.int64, device="cuda"),
+             has_real=gate)
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
+        "cudaMemsetAsync"))
+
+
+def _gated_steps(api, r0):
+    """The gated steps of round ``r0``'s fused body (every client's
+    ``epochs * nb`` at the round's pad bucket)."""
+    return int(api.fused_rounds()._block_inputs(r0, 1)["plan"]
+               .has_real.numel())
+
+
+def phase_lstm_paths():
+    """The char LSTM on shakespeare_gen (715 clients) and the StackOverflow
+    LSTM on stackoverflow_nwp_gen (cut to SO_CLIENTS clients) at full
+    width through main_fedavg: 2 host-loop rounds each, one launch a round,
+    a falling test loss; a fused block of the StackOverflow LSTM against
+    its host loop, with its graph's capture time and size."""
+    from fedml_tpu_torch.experiments import main_fedavg
+    out = {}
+    for name, flags in (("shakespeare", SH_FLAGS),
+                        ("stackoverflow", SO_FLAGS)):
+        _, launches, _, recs, wall = _launch_run(
+            main_fedavg, flags + ["--comm_round", "2",
+                                  "--frequency_of_the_test", "1"],
+            f"chip_smoke_{name}")
+        if launches != 2:
+            raise AssertionError(f"{name}: {launches} launches in 2 rounds")
+        _check_evals(name, recs, [0, 1])
+        out[name] = {"launches": launches, "evals": recs, "wall_s": wall}
+        log(f"{name} LSTM through main_fedavg: 2 rounds, {launches} "
+            f"aggregation launches, test loss {recs[0]['test_loss']:.4f} -> "
+            f"{recs[-1]['test_loss']:.4f}, acc {recs[-1]['test_acc']:.4f} "
+            f"(wall {wall:.1f}s with data build and eval)")
+    log(f"stackoverflow_nwp_gen cut from 342,477 to {SO_CLIENTS} clients "
+        "(host memory and build time); widths full: LSTM 670, vocab 10,004")
+    for name, flags in (("shakespeare", SH_FLAGS),
+                        ("stackoverflow", SO_FLAGS)):
+        parts = _anchor_parts(flags)
+        per_step = _step_launches(parts)
+        api = _main_api(parts, 2)
+        steps = _gated_steps(api, 1)
+        out[name].update(launches_per_step=per_step, gated_steps=steps,
+                         graph_nodes_estimate=per_step * steps)
+        log(f"{name}: {per_step} launch calls a train step; round 1's fused "
+            f"body gates {steps} steps, so its graph would hold about "
+            f"{per_step * steps} nodes")
+        if name == "shakespeare":
+            api.run_round(0)
+            rps = _rounds_per_s(lambda: api.run_round(1), 1, reps=1)
+            out[name]["host_rounds_per_s"] = rps
+            log(f"shakespeare host loop: {rps['median']:.3f} rounds/s (one "
+                "run of round 1); it is not captured (T = 80, two "
+                "layers)")
+    so = _anchor_parts(SO_FLAGS)
+    diff, _ = _fused_vs_host(so, ANCHOR_R)
+    if not diff <= 1e-6:
+        raise AssertionError(f"stackoverflow fused block vs host loop: "
+                             f"{diff}")
+    log(f"stackoverflow fused block == host loop over {ANCHOR_R} rounds "
+        f"(T = 21): max abs diff {diff:.3g} (bound 1e-6)")
+    out["stackoverflow"].update(
+        fused_vs_host_max_abs_diff=diff,
+        timing=_anchor_timing(so, "stackoverflow LSTM", rounds=1))
+    return out
+
+
+def _cpu_drift(ds, make, task, cfg):
+    """How far one CPU round moves from a 1e-7 relative perturbation of its
+    params: the round's own sensitivity, the scale of a card-vs-CPU
+    difference that comes from rounding alone."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    apis = [FedAvgAPI(ds, make(), task=task, config=cfg, device="cpu")
+            for _ in range(2)]
+    gen = torch.Generator().manual_seed(18)
+    apis[1].variables = {
+        k: v if "running_" in k else
+        v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+        for k, v in apis[1].variables.items()}
+    for api in apis:
+        api.run_round(0)
+    return _max_diff(apis[0].variables, apis[1].variables)
+
+
+def phase_anchor_card_vs_cpu():
+    """One round of each new model at a cut size on the card and on the
+    CPU from the same weights (TF32 off): params and BN statistics, beside
+    the CPU round's own drift under a 1e-7 relative perturbation. The
+    ResNet-56 cut is one bottleneck block a stage at batch 10: deeper or
+    at batch 4, a BN round at lr 0.1 is chaotic (batch statistics of a
+    few values a channel), and its drift reaches the bound."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.data.flagship_gen import \
+        build_stackoverflow_nwp_federation
+    from fedml_tpu_torch.data.leaf_gen import build_shakespeare_federation
+    from fedml_tpu_torch.data.synthetic import make_image_blob_federated
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.resnet import CifarResNet
+    from fedml_tpu_torch.models.resnet_gn import ResNetGN
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    img = make_image_blob_federated(client_num=4, samples_per_client=12,
+                                    image_size=16, seed=1)
+    sh = build_shakespeare_federation(client_num=4, max_windows=24)
+    so = build_stackoverflow_nwp_federation(client_num=40, vocab_size=200)
+    image, tokens = dict(batch_size=10, lr=0.05), dict(batch_size=4, lr=0.1)
+    cases = {
+        "resnet18_gn": (img, lambda: ResNetGN([1, 1, 1, 1], img.class_num),
+                        "classification", image),
+        "resnet56": (img, lambda: CifarResNet([1, 1, 1], img.class_num),
+                     "classification", image),
+        "rnn_seq": (sh, lambda: create_model("rnn_seq", sh.class_num,
+                                             hidden_size=64), "nwp",
+                    tokens),
+        "rnn_stackoverflow": (so, lambda: create_model(
+            "rnn_stackoverflow", vocab_size=200, latent_size=64,
+            embedding_size=32), "nwp", tokens)}
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, (ds, make, task, tc) in cases.items():
+            cfg = FedAvgConfig(comm_round=1, client_num_per_round=4,
+                               prefetch_depth=0, train=TrainConfig(
+                                   epochs=1, shuffle=False, **tc))
+            apis = [FedAvgAPI(ds, make(), task=task, config=cfg, device=d)
+                    for d in ("cuda", "cpu")]
+            if _max_diff(apis[0].variables, apis[1].variables) != 0:
+                raise AssertionError(f"{name}: initial weights differ")
+            for api in apis:
+                api.run_round(0)
+            out[name] = {
+                "params": _max_diff(
+                    *({k: v for k, v in a.variables.items()
+                       if "running_" not in k} for a in apis)),
+                "stats": (_max_diff(*(_stats_of(a.variables) for a in apis))
+                          if _stats_of(apis[1].variables) else None),
+                "cpu_drift_1e-7": _cpu_drift(ds, make, task, cfg)}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    bad = {k: v for k, v in out.items()
+           if not all(v[f] is None or v[f] <= ANCHOR_CPU_ATOL
+                      for f in ("params", "stats"))}
+    if bad:
+        raise AssertionError(f"anchor rounds card vs CPU: {bad}")
+    log("one round of each anchor model, card vs CPU (TF32 off), max abs "
+        "diff of params / BN statistics (the CPU round's drift from a 1e-7 "
+        "perturbation): " + ", ".join(
+            f"{k} {v['params']:.3g} / "
+            + ("-" if v["stats"] is None else f"{v['stats']:.3g}")
+            + f" ({v['cpu_drift_1e-7']:.3g})"
+            for k, v in out.items()) + f" (atol {ANCHOR_CPU_ATOL})")
+    return out
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1975,6 +2435,11 @@ def main() -> None:
     record["fedopt_path"] = phase_fedopt_path()
     record["slice_algorithms"] = phase_slice_algorithms()
     record["slice_card_vs_cpu"] = phase_slice_card_vs_cpu()
+    record["anchor_kernel"] = phase_anchor_kernel()
+    record["resnet18_gn_path"] = phase_resnet18_gn_path()
+    record["resnet56_path"] = phase_resnet56_path()
+    record["lstm_paths"] = phase_lstm_paths()
+    record["anchor_card_vs_cpu"] = phase_anchor_card_vs_cpu()
     k = record["kernel"]
     kernels = [{
         "name": "wmean_f32", "route": "cuda",
@@ -1987,6 +2452,17 @@ def main() -> None:
         "launches_fedopt_fused": record["fedopt_path"]["fused"]["launches"],
         "launches_slice": {k: v["launches"] for k, v in
                            record["slice_algorithms"].items()},
+        "launches_anchors": {
+            **{f"{m}_{mode}": record[f"{m}_path"][mode]["launches"]
+               for m in ("resnet18_gn", "resnet56")
+               for mode in ("host", "fused")},
+            "resnet56_fedopt":
+                record["resnet56_path"]["fedopt"]["launches"],
+            **{m: record["lstm_paths"][m]["launches"]
+               for m in ("shakespeare", "stackoverflow")}},
+        "at_anchor_d": {m: {f: v[f] for f in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "library_ms")} for m, v in record["anchor_kernel"].items()},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]

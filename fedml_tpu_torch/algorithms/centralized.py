@@ -16,7 +16,8 @@ from typing import Dict, Optional
 import torch
 
 from fedml_tpu_torch.data.base import FederatedDataset
-from fedml_tpu_torch.trainer.functional import TrainConfig
+from fedml_tpu_torch.trainer.functional import (TrainConfig,
+                                                refuse_collections)
 from fedml_tpu_torch.trainer.torch_trainer import TorchModelTrainer
 
 
@@ -27,6 +28,7 @@ class CentralizedTrainer:
                  task: str = "classification",
                  cfg: Optional[TrainConfig] = None, seed: int = 0,
                  device="cuda"):
+        refuse_collections(module, "the centralized trainer")
         self.dataset = dataset
         self.trainer = TorchModelTrainer(module, task, cfg or TrainConfig(),
                                          seed=seed, device=device)

@@ -17,8 +17,10 @@ padding-only steps and computes the normalizers in float32 there, as the
 JAX package's gated scan computes them on the device. The server's
 combination ``sum_i (ratio_i / a_i) * cum_grad_i`` is a weighted sum over
 the ``[clients, params]`` stack: FedAvg's weighted mean (the aggregation
-kernel on a CUDA device) times the weights' sum. Buffers that are not
-parameters take FedAvg's mean with the ratios.
+kernel on a CUDA device) times the weights' sum. The collections (BatchNorm
+statistics) move with each real step's train-mode forward, as the JAX
+package carries them through its scan, and take FedAvg's mean with the
+ratios.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from fedml_tpu_torch.data.base import FederatedDataset
 from fedml_tpu_torch.models.common import DropoutKey, init_params
 from fedml_tpu_torch.trainer.functional import (TrainConfig,
                                                 make_batch_schedule,
-                                                make_eval, make_forward)
+                                                make_eval, make_forward,
+                                                make_train_forward,
+                                                next_colls)
 from fedml_tpu_torch.trainer.tasks import TASK_HEADS
 from fedml_tpu_torch.utils.device import resolve_device
 
@@ -60,17 +64,19 @@ class FedNovaConfig:
 
 def make_fednova_local_train(module: torch.nn.Module, task: str,
                              cfg: FedNovaConfig):
-    """Build ``local(params, buffers, x, y, mask, schedule) -> (cum_grad,
-    a_i, steps, buffers, stats)``: the client side of FedNova over the
+    """Build ``local(params, colls, x, y, mask, schedule) -> (cum_grad,
+    a_i, steps, colls, stats)``: the client side of FedNova over the
     real steps of ``schedule`` (a :class:`BatchSchedule` on the host).
-    ``params`` and ``cum_grad`` are ``{name: tensor}`` dicts; ``a_i`` is a
-    float32 and ``steps`` the count of real steps."""
+    ``params``, ``cum_grad`` and the collections ``colls`` (as the last
+    real step's forward left them) are ``{name: tensor}`` dicts; ``a_i``
+    is a float32 and ``steps`` the count of real steps."""
     head = TASK_HEADS[task]
-    forward = make_forward(module)
+    forward = make_train_forward(module)
+    eval_forward = make_forward(module)
     tc = cfg.train
     m, lr, etamu = tc.momentum, tc.lr, tc.lr * cfg.mu
 
-    def local(params0: Dict[str, torch.Tensor], buffers, x, y, mask,
+    def local(params0: Dict[str, torch.Tensor], colls, x, y, mask,
               schedule):
         names = list(params0)
         p0 = [params0[n].detach() for n in names]
@@ -82,12 +88,14 @@ def make_fednova_local_train(module: torch.nn.Module, task: str,
             rows = idx[s]
             leaves = [p.requires_grad_(True) for p in
                       (q.detach() for q in params)]
-            out = forward({**buffers, **dict(zip(names, leaves))}, x[rows],
-                          True, DropoutKey(int(schedule.step_seeds[s])))
+            out, new_colls = forward(
+                {**colls, **dict(zip(names, leaves))}, x[rows],
+                DropoutKey(int(schedule.step_seeds[s])))
             stats = head(out, y[rows], mask[rows])
             grads = torch.autograd.grad(
                 stats["loss_sum"] / stats["count"].clamp(min=1.0), leaves)
             with torch.no_grad():
+                colls = next_colls(colls, new_colls)
                 # d_p = grad + wd * p
                 d_p = [g + tc.wd * p for g, p in zip(grads, params)]
                 if m:
@@ -116,9 +124,9 @@ def make_fednova_local_train(module: torch.nn.Module, task: str,
         if total is None:  # no real row: zero stats
             with torch.no_grad():
                 total = {k: torch.zeros_like(v) for k, v in head(
-                    forward({**buffers, **params0}, x[:1], False), y[:1],
+                    eval_forward({**colls, **params0}, x[:1], False), y[:1],
                     torch.zeros_like(mask[:1])).items()}
-        return dict(zip(names, cum)), a_i, steps, buffers, total
+        return dict(zip(names, cum)), a_i, steps, colls, total
 
     return local
 

@@ -38,6 +38,7 @@ from fedml_tpu_torch.models.common import init_params
 from fedml_tpu_torch.trainer.functional import (TrainConfig,
                                                 make_batch_schedule,
                                                 make_eval, make_local_train,
+                                                refuse_collections,
                                                 stack_schedules,
                                                 validate_accum_steps)
 from fedml_tpu_torch.utils.device import resolve_device
@@ -69,6 +70,7 @@ class HierarchicalFedAvgAPI:
         cfg = self.config
         if cfg.group_method != "random":
             raise ValueError(f"unknown group_method {cfg.group_method!r}")
+        refuse_collections(module, "hierarchical FedAvg")
         if cfg.train.lr_decay_round != 1.0:
             raise NotImplementedError(
                 "lr_decay_round is not defined for the 2-tier loop (which "

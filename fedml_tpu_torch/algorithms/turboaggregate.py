@@ -34,6 +34,7 @@ import torch
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.core import mpc
 from fedml_tpu_torch.core import pytree as pt
+from fedml_tpu_torch.trainer.functional import refuse_collections
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +115,7 @@ class SecureFedAvgAPI(FedAvgAPI):
                  config=None,
                  secure_config: Optional[TurboAggregateConfig] = None,
                  device="cuda"):
+        refuse_collections(module, "TurboAggregate's secure sum")
         self._secure = SecureAggregator(secure_config)
         self._secure_round = 0
 

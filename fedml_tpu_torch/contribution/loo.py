@@ -22,7 +22,8 @@ import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
 from fedml_tpu_torch.data.base import FederatedDataset
-from fedml_tpu_torch.trainer.functional import make_forward
+from fedml_tpu_torch.trainer.functional import (make_forward,
+                                                refuse_collections)
 
 
 class LeaveOneOutMeasure:
@@ -40,7 +41,9 @@ class LeaveOneOutMeasure:
         self.influence: List[Optional[float]] = [None] * dataset.client_num
 
     def _train(self, delete_client: Optional[int]) -> FedAvgAPI:
-        api = FedAvgAPI(self.ds, self.module_factory(), task=self.task,
+        module = self.module_factory()
+        refuse_collections(module, "leave-one-out contribution")
+        api = FedAvgAPI(self.ds, module, task=self.task,
                         config=self.config, delete_client=delete_client,
                         device=self.device)
         for r in range(self.config.comm_round):

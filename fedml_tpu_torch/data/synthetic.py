@@ -2,10 +2,14 @@
 
 ``make_blob_federated`` is a small deterministic gaussian-blob dataset, the
 ``blob`` default of the CLI and the workhorse of the LR tests;
-``make_token_federated`` is the token federation of the transformer LM's
-next-word-prediction path (``token_blob``). Their draws are identical to
-those of the same functions in ``fedml_tpu.data.synthetic`` for the same
-arguments.
+``make_powerlaw_blob_federated`` the same features over LEAF-style
+power-law client sizes (``powerlaw_blob``); ``make_synthetic_federated``
+the LEAF synthetic(alpha, beta) federation (``synthetic``);
+``make_image_blob_federated`` NHWC color-gradient images (``img_blob``,
+the CIFAR ResNets' stand-in); ``make_token_federated`` the token
+federation of the transformer LM's next-word-prediction path
+(``token_blob``). Their draws are identical to those of the same functions
+in ``fedml_tpu.data.synthetic`` for the same arguments.
 """
 
 from __future__ import annotations
@@ -17,6 +21,40 @@ import numpy as np
 from fedml_tpu_torch.core.partition import partition_data
 from fedml_tpu_torch.core.sampling import locked_global_numpy_rng
 from fedml_tpu_torch.data.base import FederatedDataset
+
+
+def make_synthetic_federated(
+    alpha: float = 1.0,
+    beta: float = 1.0,
+    client_num: int = 30,
+    dim: int = 60,
+    class_num: int = 10,
+    seed: int = 0,
+    mean_samples: int = 50,
+    test_fraction: float = 0.2,
+) -> FederatedDataset:
+    """LEAF's synthetic(alpha, beta): per client a random linear softmax
+    model and a shifted gaussian input law, lognormal client sizes."""
+    rng = np.random.RandomState(seed)
+    sizes = (rng.lognormal(4, 2, client_num).astype(int) + mean_samples)
+    cov_diag = np.power(np.arange(1, dim + 1), -1.2)
+
+    train_local, test_local = {}, {}
+    for c in range(client_num):
+        u = rng.normal(0, alpha)
+        b_mean = rng.normal(0, beta)
+        v = rng.normal(b_mean, 1, dim)
+        W = rng.normal(u, 1, (dim, class_num))
+        bias = rng.normal(u, 1, class_num)
+        n = int(sizes[c])
+        x = rng.multivariate_normal(v, np.diag(cov_diag), n).astype(
+            np.float32)
+        y = np.argmax(x @ W + bias, axis=1).astype(np.int32)
+        n_test = max(1, int(n * test_fraction))
+        train_local[c] = (x[n_test:], y[n_test:])
+        test_local[c] = (x[:n_test], y[:n_test])
+    return FederatedDataset.from_client_arrays(train_local, test_local,
+                                               class_num)
 
 
 def make_blob_federated(
@@ -45,6 +83,76 @@ def make_blob_federated(
         idxs = np.asarray(idxs)
         if samples_per_client:
             idxs = idxs[:samples_per_client]
+        n_test = max(1, len(idxs) // 5)
+        test_local[c] = (x[idxs[:n_test]], y[idxs[:n_test]])
+        train_local[c] = (x[idxs[n_test:]], y[idxs[n_test:]])
+    return FederatedDataset.from_client_arrays(train_local, test_local,
+                                               class_num)
+
+
+def make_powerlaw_blob_federated(
+    client_num: int = 1000,
+    dim: int = 32,
+    class_num: int = 10,
+    seed: int = 0,
+    min_samples: int = 10,
+    size_mean: float = 3.0,
+    size_sigma: float = 1.2,
+    max_samples: Optional[int] = None,
+    noise: float = 1.0,
+    test_fraction: float = 0.1,
+) -> FederatedDataset:
+    """Gaussian blobs over LEAF-style power-law client sizes (``min_samples
+    + lognormal``, optionally capped), drawn in one vectorized pass."""
+    rng = np.random.RandomState(seed)
+    sizes = (min_samples
+             + rng.lognormal(size_mean, size_sigma, client_num)).astype(int)
+    if max_samples:
+        sizes = np.minimum(sizes, max_samples)
+    centers = rng.randn(class_num, dim) * 3.0
+    total = int(sizes.sum())
+    y = rng.randint(0, class_num, total).astype(np.int32)
+    x = (centers[y] + noise * rng.randn(total, dim)).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    train_local, test_local = {}, {}
+    for c in range(client_num):
+        xc = x[offsets[c]:offsets[c + 1]]
+        yc = y[offsets[c]:offsets[c + 1]]
+        n_test = max(1, int(len(xc) * test_fraction))
+        test_local[c] = (xc[:n_test], yc[:n_test])
+        train_local[c] = (xc[n_test:], yc[n_test:])
+    return FederatedDataset.from_client_arrays(train_local, test_local,
+                                               class_num)
+
+
+def make_image_blob_federated(
+    client_num: int = 4,
+    samples_per_client: int = 32,
+    image_size: int = 32,
+    class_num: int = 4,
+    partition_method: str = "homo",
+    partition_alpha: float = 0.5,
+    seed: int = 0,
+) -> FederatedDataset:
+    """NHWC image classification: each class a distinct low-frequency
+    color pattern, plus noise; partitioned homo/hetero."""
+    rng = np.random.RandomState(seed)
+    s = image_size
+    n = client_num * samples_per_client
+    y = rng.randint(0, class_num, n).astype(np.int32)
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / s
+    sigs = np.stack([np.stack([np.sin((c + 1) * np.pi * xx),
+                               np.cos((c + 1) * np.pi * yy),
+                               np.full_like(xx, (c + 1) / class_num)], -1)
+                     for c in range(class_num)])  # [C, H, W, 3]
+    x = (sigs[y] + 0.3 * rng.randn(n, s, s, 3)).astype(np.float32)
+
+    with locked_global_numpy_rng(seed):  # atomic seed+draws, ref parity
+        mapping = partition_data(y, partition_method, client_num,
+                                 alpha=partition_alpha, class_num=class_num)
+    train_local, test_local = {}, {}
+    for c, idxs in mapping.items():
+        idxs = np.asarray(idxs)
         n_test = max(1, len(idxs) // 5)
         test_local[c] = (x[idxs[:n_test]], y[idxs[:n_test]])
         train_local[c] = (x[idxs[n_test:]], y[idxs[n_test:]])

@@ -2,7 +2,8 @@
 
 All modules share one calling convention: ``module(x, train=bool,
 generator=torch.Generator | None)`` with the JAX package's NHWC image
-layout at the input (the transformer takes integer tokens ``[B, T]``). ``create_model`` mirrors the reference's factory
+layout at the input (the transformer and the LSTMs take integer tokens
+``[B, T]``). ``create_model`` mirrors the reference's factory
 (fedml_experiments/distributed/fedavg/main_fedavg.py:229-266).
 """
 
@@ -17,14 +18,37 @@ def create_model(model_name: str, output_dim: int = 10,
                  input_shape: Optional[Sequence[int]] = None, **kw):
     """Model factory with reference naming. ``input_shape`` is one
     example's feature shape; ``lr`` needs it to size its layer.
-    ``transformer`` takes ``output_dim`` as its vocab size and ``kw`` as
-    :class:`TransformerLM` fields (``width``, ``depth``, ``attn_fn``...)."""
+    ``transformer`` and ``rnn_seq`` take ``output_dim`` as their vocab
+    size and ``kw`` as the model's fields (``width``, ``depth``,
+    ``attn_fn``...); ``rnn`` and ``rnn_stackoverflow`` ignore
+    ``output_dim``, as the JAX package's factory does."""
     if model_name == "lr":
         if input_shape is None:
             raise ValueError("model 'lr' needs input_shape")
         return LogisticRegression(prod(input_shape), output_dim)
     if model_name == "cnn":
         return CNN_DropOut(only_digits=(output_dim == 10))
+    if model_name in ("resnet18_gn", "resnet18"):
+        from fedml_tpu_torch.models.resnet_gn import resnet18_gn
+        return resnet18_gn(num_classes=output_dim, **kw)
+    if model_name == "resnet56":
+        from fedml_tpu_torch.models.resnet import resnet56
+        return resnet56(num_classes=output_dim, **kw)
+    if model_name == "resnet110":
+        from fedml_tpu_torch.models.resnet import resnet110
+        return resnet110(num_classes=output_dim, **kw)
+    if model_name == "rnn":
+        from fedml_tpu_torch.models.rnn import RNN_OriginalFedAvg
+        return RNN_OriginalFedAvg(**kw)
+    if model_name == "rnn_seq":
+        # every position scored over output_dim chars: the shakespeare
+        # loaders emit whole shifted target sequences for the nwp head
+        from fedml_tpu_torch.models.rnn import RNN_OriginalFedAvg
+        return RNN_OriginalFedAvg(
+            **{"vocab_size": output_dim, "seq_output": True, **kw})
+    if model_name == "rnn_stackoverflow":
+        from fedml_tpu_torch.models.rnn import RNN_StackOverflow
+        return RNN_StackOverflow(**kw)
     if model_name == "transformer":
         from fedml_tpu_torch.models.transformer import TransformerLM
         return TransformerLM(vocab_size=output_dim, **kw)

@@ -1,14 +1,20 @@
-"""Pieces shared by the model zoo: flax-matching initialization and
-dropout from an explicit key (a ``torch.Generator`` or a graph-safe
-:class:`DropoutKey`)."""
+"""Pieces shared by the model zoo: flax-matching initialization, dropout
+from an explicit key (a ``torch.Generator`` or a graph-safe
+:class:`DropoutKey`), and the layers whose semantics follow flax's rather
+than torch's: :class:`BatchNorm` (its running statistics handed back to the
+trainer, never written in place) and the :class:`LSTM` layer of flax's
+``OptimizedLSTMCell``."""
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Union
+import threading
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from fedml_tpu_torch.core.sampling import counter_bits, fold32
 
@@ -17,26 +23,146 @@ from fedml_tpu_torch.core.sampling import counter_bits, fold32
 _TRUNC_STD = 0.87962566103423978
 
 
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-initialize every Linear, Conv and Embedding layer the way flax's
-    defaults do: kernel ``lecun_normal`` (truncated normal, variance
-    1/fan_in), bias zeros, embedding a plain normal of variance 1/width,
-    drawn from ``generator``; LayerNorms keep torch's ones and zeros, which
-    are flax's too. The distributions match the JAX package's; the numbers
-    do not (different generators)."""
+    """Re-initialize every layer the way flax's defaults do, drawing from
+    ``generator``: Linear and Conv kernels ``lecun_normal`` (truncated
+    normal, variance 1/fan_in) and bias zeros; an embedding a plain normal
+    of variance 1/width; GroupNorm and BatchNorm scale 1 and bias 0, the
+    running mean 0 and variance 1; an LSTM's input kernels
+    ``lecun_normal``, its recurrent kernels orthogonal (each gate's
+    ``[H, H]`` block on its own, as flax draws one per gate) and its bias
+    zeros. LayerNorms keep torch's ones and zeros, which are flax's too.
+    The distributions match the JAX package's; the numbers do not
+    (different generators)."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.embedding_dim),
                             generator=generator)
+        elif isinstance(m, (nn.GroupNorm, BatchNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            if isinstance(m, BatchNorm):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        elif isinstance(m, LSTM):
+            _lecun_normal_(m.weight_ih, m.weight_ih.shape[1], generator)
+            for gate in m.weight_hh.chunk(4, 0):
+                nn.init.orthogonal_(gate, generator=generator)
+            m.bias.zero_()
     return module
+
+
+# -- BatchNorm with flax's semantics -----------------------------------------
+
+_BATCH_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def collect_batch_stats():
+    """Collect the new running statistics of every :class:`BatchNorm` that
+    runs in train mode inside the block: yields ``{layer: (mean, var)}``.
+    The sink is the calling thread's own (silos train on threads)."""
+    prev = getattr(_BATCH_STATS, "sink", None)
+    sink: Dict["BatchNorm", Tuple[torch.Tensor, torch.Tensor]] = {}
+    _BATCH_STATS.sink = sink
+    try:
+        yield sink
+    finally:
+        _BATCH_STATS.sink = prev
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
+    axis (dim 1) of an NCHW tensor, the JAX package's ``models/common.bn``.
+
+    Train mode normalizes with the statistics of the whole batch, padding
+    rows included (the JAX forward sees the padded batch too), computed in
+    f32 as flax's ``use_fast_variance`` does: the *biased* variance
+    ``E[x^2] - E[x]^2``, clipped at 0. The running statistics move by
+    ``ra = 0.9 ra + 0.1 batch`` with that same variance, which is why
+    ``F.batch_norm`` (it writes the unbiased variance) does not update
+    them. The new values are not written into the buffers: they go to the
+    :func:`collect_batch_stats` sink, and the trainer selects them like the
+    params; train mode outside a sink raises rather than drop them. Eval
+    mode normalizes with the running statistics. No ``num_batches_tracked``
+    counter: every buffer is an f32 leaf the aggregation averages."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            sink = getattr(_BATCH_STATS, "sink", None)
+            if sink is None:
+                raise RuntimeError(
+                    "BatchNorm in train mode outside collect_batch_stats(): "
+                    "its new running statistics would be lost")
+            axes = [d for d in range(x.dim()) if d != 1]
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = torch.clamp(torch.mean(xf * xf, axes) - mean * mean,
+                              min=0.0)
+            m = self.momentum
+            sink[self] = (m * self.running_mean + (1.0 - m) * mean,
+                          m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = x - mean.view(shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = y * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+class LSTM(nn.Module):
+    """One layer of flax's ``nn.RNN(nn.OptimizedLSTMCell(H))`` over ``[B,
+    T, I]``, a fresh zero carry each call: the input projection of all T
+    steps in one product, then one ``[H, 4H]`` recurrent product a step;
+    gates i, f, g, o (sigmoid, sigmoid, tanh, sigmoid), ``c' = f c + i g``,
+    ``h' = o tanh(c')``. ``weight_ih [4H, I]``, ``weight_hh [4H, H]`` and
+    ``bias [4H]`` (the recurrent products' bias; the input kernels have
+    none) stack the gates in that order, torch's layout for flax's eight
+    kernels (utils/convert.py). Returns every step's ``h``, ``[B, T, H]``."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden_size,
+                                                  input_size))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden_size,
+                                                  hidden_size))
+        self.bias = nn.Parameter(torch.zeros(4 * hidden_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xp = F.linear(x, self.weight_ih)  # [B, T, 4H]
+        h = x.new_zeros(x.shape[0], self.hidden_size)
+        c = torch.zeros_like(h)
+        out = []
+        for t in range(x.shape[1]):
+            i, f, g, o = (F.linear(h, self.weight_hh, self.bias)
+                          + xp[:, t]).chunk(4, -1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            out.append(h)
+        return torch.stack(out, 1)
 
 
 class DropoutKey:

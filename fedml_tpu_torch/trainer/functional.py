@@ -26,6 +26,15 @@ one step function (:func:`make_train_step`). Two ways to walk the steps:
   CUDA graph can capture it (``algorithms/fedavg.py``, ``FusedRounds``).
 
 Both leave padding-only batches true no-ops, so they give the same bits.
+
+Params and collections: the state dict's parameters
+(``module.named_parameters()``) are differentiated and stepped; every other
+entry (BatchNorm's running statistics, ``models/common.BatchNorm``) is a
+collection, the JAX package's non-``params`` variables. The train-mode
+forward hands back the collections' new values, and the step selects them
+with the same gate as the params (``fedml_tpu/trainer/functional.py:
+124-141, 297-303``); they stay f32 under ``compute_dtype``. A model with no
+collections runs exactly the ops it ran before they existed.
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ from torch.func import functional_call
 
 from fedml_tpu_torch.core.sampling import (counter_bits, derive_seed, fold32,
                                            make_generator)
-from fedml_tpu_torch.models.common import DropoutKey
+from fedml_tpu_torch.models.common import (BatchNorm, DropoutKey,
+                                           collect_batch_stats)
 from fedml_tpu_torch.trainer.tasks import TASK_HEADS, TaskHead
 
 
@@ -363,15 +373,64 @@ def make_forward(module: torch.nn.Module) -> Callable:
     return forward
 
 
+def make_train_forward(module: torch.nn.Module) -> Callable:
+    """``forward(variables, x, generator) -> (out, colls)``: the train-mode
+    forward over a state dict, with ``colls`` the new values of the
+    collections it updated (``{"<layer>.running_mean": ..., ...}``, empty
+    for a model without BatchNorm), never written into ``variables``."""
+    owners = {m: name for name, m in module.named_modules()
+              if isinstance(m, BatchNorm)}
+
+    def forward(variables, x, generator):
+        with collect_batch_stats() as sink:
+            out = functional_call(module, variables, (x,),
+                                  {"train": True, "generator": generator})
+        colls = {}
+        for m, (mean, var) in sink.items():
+            colls[f"{owners[m]}.running_mean"] = mean
+            colls[f"{owners[m]}.running_var"] = var
+        return out, colls
+
+    return forward
+
+
+def param_names(module: torch.nn.Module) -> set:
+    """The state-dict names of ``module``'s parameters; the other names of
+    its state dict are collections."""
+    return {n for n, _ in module.named_parameters(remove_duplicate=False)}
+
+
+def refuse_collections(module: torch.nn.Module, what: str) -> None:
+    """Raise ``NotImplementedError`` when ``module`` has collections:
+    ``what`` has not been held to the JAX package on such a model, and
+    must not noise, step or average a running statistic unchecked."""
+    names = param_names(module)
+    colls = [k for k in module.state_dict() if k not in names]
+    if colls:
+        raise NotImplementedError(
+            f"{what} on a model with collections ({colls[0]}, ...) is not "
+            "held to the JAX package yet: ROADMAP Queue 1, item 17a")
+
+
+def next_colls(colls, new) -> dict:
+    """The collections after a step: the forward's new value of each one
+    it updated, detached and in the collection's dtype (f32 under
+    ``compute_dtype``), else the old value."""
+    return {k: new[k].detach().to(v.dtype) if k in new else v
+            for k, v in colls.items()}
+
+
 def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype) if t.is_floating_point() else t
 
 
 def make_train_step(module: torch.nn.Module, task: str, cfg: TrainConfig):
     """Build ``(init, step)``: ``init(params) -> optimizer state`` and
-    ``step(names, params, state, xb, yb, mb, seed, lr_scale=None,
-    has_real=None, emit=None, acc_div=None) -> (params, state, stats)``,
-    one SGD step of one client on lists of tensors.
+    ``step(names, params, colls, state, xb, yb, mb, seed, lr_scale=None,
+    has_real=None, emit=None, acc_div=None) -> (params, colls, state,
+    stats)``, one SGD step of one client: ``params`` a list of tensors
+    named by ``names``, ``colls`` the ``{name: tensor}`` collections (empty
+    for a model without any), which come out of the train-mode forward.
 
     Under ``compute_dtype`` the params, the float inputs and the forward
     run in that dtype through explicit casts on the autograd path, and the
@@ -381,22 +440,23 @@ def make_train_step(module: torch.nn.Module, task: str, cfg: TrainConfig):
     dropout seed (a Python int, or a 0-dim int64 tensor in a captured
     round); ``lr_scale`` a 0-dim f32 tensor or None.
     ``has_real`` (0-dim bool) gates the whole step into a no-op: params,
-    optimizer state and stats keep their old values (stats: zero)."""
+    optimizer state, collections and stats keep their old values (stats:
+    zero)."""
     head: TaskHead = TASK_HEADS[task]
-    forward = make_forward(module)
+    forward = make_train_forward(module)
     opt = make_optimizer(cfg)
     cdtype = compute_dtype(cfg)
 
-    def step(names, params, state, xb, yb, mb, seed, lr_scale=None,
+    def step(names, params, colls, state, xb, yb, mb, seed, lr_scale=None,
              has_real=None, emit=None, acc_div=None):
         leaves = [p.detach().requires_grad_(True) for p in params]
+        variables = {**colls, **dict(zip(names, leaves))}
         if cdtype is not None:
-            variables = {n: _cast(p, cdtype) for n, p in zip(names, leaves)}
-            out = forward(variables, _cast(xb, cdtype), True,
-                          DropoutKey(seed)).float()
-        else:
-            out = forward(dict(zip(names, leaves)), xb, True,
-                          DropoutKey(seed))
+            variables = {k: _cast(v, cdtype) for k, v in variables.items()}
+            xb = _cast(xb, cdtype)
+        out, new_colls = forward(variables, xb, DropoutKey(seed))
+        if cdtype is not None:
+            out = out.float()
         stats = head(out, yb, mb)
         loss = stats["loss_sum"] / stats["count"].clamp(min=1.0)
         grads = torch.autograd.grad(loss, leaves)
@@ -406,13 +466,15 @@ def make_train_step(module: torch.nn.Module, task: str, cfg: TrainConfig):
             if lr_scale is not None:
                 updates = torch._foreach_mul(updates, lr_scale)
             new_params = torch._foreach_add(params, updates)
+            new_colls = next_colls(colls, new_colls)
             stats = {k: v.detach() for k, v in stats.items()}
             if has_real is not None:
                 new_params = tree_where(has_real, new_params, params)
+                new_colls = tree_where(has_real, new_colls, colls)
                 new_state = tree_where(has_real, new_state, state)
                 stats = {k: torch.where(has_real, v, 0.0)
                          for k, v in stats.items()}
-        return new_params, new_state, stats
+        return new_params, new_colls, new_state, stats
 
     return opt.init, step
 
@@ -422,7 +484,9 @@ def make_local_train(module: torch.nn.Module, task: str, cfg: TrainConfig):
     schedule=None, gated=False) -> (variables, stats)``.
 
     ``variables`` is a ``{name: tensor}`` state dict on the data's device;
-    the result is a new state dict (the input is not modified). ``stats``
+    the result is a new state dict (the input is not modified), its
+    parameters trained and its collections (BatchNorm statistics) as the
+    last real step's forward left them. ``stats``
     are the summed head stats over the client's real steps. ``schedule``
     is the client's :class:`BatchSchedule`; without one it is built from
     ``mask`` (which then waits for the device). ``lr_scale`` is a 0-dim f32
@@ -437,6 +501,7 @@ def make_local_train(module: torch.nn.Module, task: str, cfg: TrainConfig):
     forward = make_forward(module)
     init, step = make_train_step(module, task, cfg)
     accum = cfg.accum_steps > 1
+    trained = param_names(module)
 
     def local_train(variables, x, y, mask, seed: int, lr_scale=None,
                     schedule: Optional[BatchSchedule] = None,
@@ -468,15 +533,17 @@ def make_local_train(module: torch.nn.Module, task: str, cfg: TrainConfig):
                 for a in (schedule.has_real, schedule.step_seeds))
             seeds = [int(v) for v in seeds]
             steps = np.flatnonzero(has_real)
-        names = list(variables)
+        names = [k for k in variables if k in trained]
         params = [variables[k].detach() for k in names]
+        colls = {k: v.detach() for k, v in variables.items()
+                 if k not in trained}
         state = init(params)
         total = None
         for s in steps:
             rows = idx[s]
-            params, state, stats = step(
-                names, params, state, x[rows], y[rows], mask[rows], seeds[s],
-                lr_scale, gate[s] if gated else None,
+            params, colls, state, stats = step(
+                names, params, colls, state, x[rows], y[rows], mask[rows],
+                seeds[s], lr_scale, gate[s] if gated else None,
                 emit[s] if accum else None, acc_div[s] if accum else None)
             total = stats if total is None else {
                 k: total[k] + stats[k] for k in total}
@@ -485,7 +552,8 @@ def make_local_train(module: torch.nn.Module, task: str, cfg: TrainConfig):
                 total = {k: torch.zeros_like(v) for k, v in head(
                     forward(variables, x[:1], False), y[:1],
                     torch.zeros_like(mask[:1])).items()}
-        return dict(zip(names, params)), total
+        out = {**colls, **dict(zip(names, params))}
+        return {k: out[k] for k in variables}, total
 
     return local_train
 
@@ -493,8 +561,9 @@ def make_local_train(module: torch.nn.Module, task: str, cfg: TrainConfig):
 def make_eval(module: torch.nn.Module, task: str,
               eval_batch_size: int = 512):
     """Build ``evaluate(variables, x, y, mask) -> stat sums`` over fixed
-    eval batches in deterministic mode (no dropout), the analogue of the
-    reference's ``ModelTrainer.test`` loop (MyModelTrainer.py:51-96)."""
+    eval batches in deterministic mode (no dropout, BatchNorm on its
+    running statistics), the analogue of the reference's
+    ``ModelTrainer.test`` loop (MyModelTrainer.py:51-96)."""
     head: TaskHead = TASK_HEADS[task]
     forward = make_forward(module)
 

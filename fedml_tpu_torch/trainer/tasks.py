@@ -6,9 +6,9 @@ clients by plain addition. Every example row carries a 0/1 ``mask`` weight
 (padding rows are 0); the per-batch training loss is ``loss_sum / count``,
 torch's ``reduction='mean'`` over the real examples.
 
-The port has the classification and next-word-prediction heads of
-``fedml_tpu/trainer/tasks.py``; the tag-prediction and segmentation heads
-come with the models that need them.
+The port has the classification, next-word-prediction and tag-prediction
+heads of ``fedml_tpu/trainer/tasks.py``; the segmentation heads come with
+the models that need them.
 """
 
 from __future__ import annotations
@@ -54,9 +54,35 @@ def nwp_head(logits: torch.Tensor, targets: torch.Tensor,
     }
 
 
+def tag_prediction_head(logits: torch.Tensor, targets: torch.Tensor,
+                        mask: torch.Tensor) -> Stats:
+    """Multi-label tag prediction (stackoverflow_lr): sigmoid BCE over
+    [B, L] logits and 0/1 targets. An example is correct only when every
+    label matches at threshold 0.5; precision and recall are per-example
+    ratios (with the reference's 1e-13 in each denominator) summed over
+    the real examples (reference MyModelTrainer.py:72-83)."""
+    targets = targets.to(logits.dtype)
+    per_label = F.binary_cross_entropy_with_logits(logits, targets,
+                                                   reduction="none")
+    per_ex = per_label.mean(-1)
+    pred = (torch.sigmoid(logits) > 0.5).to(torch.float32)
+    exact = (pred == targets).all(-1).to(torch.float32)
+    tp = (pred * targets).sum(-1)
+    precision = tp / (pred.sum(-1) + 1e-13)
+    recall = tp / (targets.sum(-1) + 1e-13)
+    return {
+        "loss_sum": (per_ex * mask).sum(),
+        "count": mask.sum(),
+        "correct_sum": (exact * mask).sum(),
+        "precision_sum": (precision * mask).sum(),
+        "recall_sum": (recall * mask).sum(),
+    }
+
+
 TASK_HEADS: Dict[str, TaskHead] = {
     "classification": classification_head,
     "nwp": nwp_head,
+    "tag_prediction": tag_prediction_head,
 }
 
 

@@ -215,8 +215,8 @@ def test_masters_and_optimizer_state_stay_f32(opt):
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.rand(4, 28, 28, 1).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 62, 4).astype(np.int32))
-    params, state, stats = step(names, params, state, x, y, torch.ones(4),
-                                torch.tensor(7))
+    params, _, state, stats = step(names, params, {}, state, x, y,
+                                   torch.ones(4), torch.tensor(7))
     leaves = [params, state["trace"] if "trace" in state else state["mu"]]
     assert all(t.dtype == torch.float32 for group in leaves for t in group)
     assert all(v.dtype == torch.float32 for v in stats.values())

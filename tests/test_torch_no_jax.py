@@ -48,6 +48,26 @@ api = FedAvgAPI(ds, lm, task="nwp", device="cpu", config=FedAvgConfig(
     comm_round=1, client_num_per_round=2,
     train=TrainConfig(batch_size=2, lr=0.1)))
 _, stats = api.run_round(0)
+# one round of a small BN ResNet-56 on img_blob and one of the char LSTM
+from fedml_tpu_torch.data.leaf_gen import build_shakespeare_federation
+from fedml_tpu_torch.data.synthetic import make_image_blob_federated
+from fedml_tpu_torch.models.resnet import CifarResNet
+ids = make_image_blob_federated(client_num=2, samples_per_client=8,
+                                image_size=8)
+bn = FedAvgAPI(ids, CifarResNet([1, 1, 1], ids.class_num), device="cpu",
+               config=FedAvgConfig(comm_round=1, client_num_per_round=2,
+                                   train=TrainConfig(batch_size=4, lr=0.1)))
+before = bn.variables["stem_bn.running_var"].clone()
+bn.run_round(0)
+sds = build_shakespeare_federation(client_num=2, max_windows=12)
+rnn = FedAvgAPI(sds, create_model("rnn_seq", sds.class_num, hidden_size=8),
+                task="nwp", device="cpu", config=FedAvgConfig(
+                    comm_round=1, client_num_per_round=2,
+                    train=TrainConfig(batch_size=4, lr=0.5)))
+_, rnn_stats = rnn.run_round(0)
+slice_c = {"bn_stats_moved": not bool(
+               (bn.variables["stem_bn.running_var"] == before).all()),
+           "rnn_tokens": float(rnn_stats["count"])}
 # one cross-silo round over the compressed wire (top-k + int8 + EF)
 from fedml_tpu_torch.algorithms.fedavg_cross_silo import run_fedavg_cross_silo
 from fedml_tpu_torch.data.synthetic import make_blob_federated
@@ -72,7 +92,7 @@ for algo, extra in (("fedopt", ["--fused_rounds", "1"]),
 print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
                   "lm_tokens": float(stats["count"]),
                   "silo_rounds": [r["round"] for r in hist],
-                  "algos": algos}))
+                  "algos": algos, "slice_c": slice_c}))
 """
 
 
@@ -93,6 +113,8 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
          "turboaggregate", "centralized", "decentralized", "contribution"])
     assert "regret" in out["algos"]["decentralized"]
     assert "influence" in out["algos"]["contribution"]
+    assert out["slice_c"]["bn_stats_moved"]
+    assert out["slice_c"]["rnn_tokens"] > 0
     for m in ("ops.aggregate", "ops.flash_attention", "models.transformer",
               "ops.quantize", "comm.compression",
               "algorithms.fedavg_cross_silo", "algorithms.fedopt",
@@ -102,7 +124,8 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "contribution.loo", "contribution.shap", "core.robust",
               "core.mpc", "core.topology", "data.poisoned",
               "trainer.torch_trainer", "trainer.model_trainer",
-              "experiments.fed_launch"):
+              "experiments.fed_launch", "models.resnet", "models.resnet_gn",
+              "models.rnn", "data.leaf", "data.leaf_gen"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
     assert not bad, bad
