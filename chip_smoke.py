@@ -25,13 +25,13 @@
    loss fell; runs the same cohorts through the host loop and a fused
    block with shuffle and dropout on (cuDNN deterministic) and bounds the
    difference by 1e-6; then times the host loop and fused blocks (median
-   and spread of three runs of 10 rounds), profiles each (device ms and
-   launch calls a round; the profiler must see one aggregation kernel a
-   fused round, as the driver counts) and prints each graph's capture
-   time and memory pool;
+   and spread of three runs of 5 rounds), profiles each (device ms and
+   launch calls of a host round and a 2-round fused block; the profiler
+   must see one aggregation kernel a fused round, as the driver counts)
+   and prints each graph's capture time and memory pool;
 4b. the same in bf16 off f32 masters (the JAX headline's
-   ``bench_fedavg_cnn_fused_headline``), and one bf16 round against an f32
-   round from the same weights;
+   ``bench_fedavg_cnn_fused_headline``; one timed run each way), and one
+   bf16 round against an f32 round from the same weights;
 4c. device-sampled fused rounds (cohorts and batch orders drawn on the
    card): distinct cohorts without replacement, and the test loss falls;
 5. holds the three flash-attention kernels (forward, dK/dV, dQ) against
@@ -81,7 +81,7 @@
    round, one more a capture's warm-up round) and that the test loss fell,
    holds a fused block to the host loop (params and Adam state, 1e-6,
    cuDNN deterministic) and a round of server SGD at lr 1 to FedAvg's
-   (1e-6), then times both as in 4a;
+   (1e-6), then times both as in 4b;
 12. runs the rest of the slice through ``fed_launch.main`` for 2-3 rounds:
    ``fedavg_robust`` on the CNN under every defense (and a fused block
    under ``weak_dp`` against its host loop), ``fednova``, ``hierarchical``
@@ -105,8 +105,8 @@
    graph's capture time and pool;
 16. the same for ResNet-56 with its BatchNorm statistics on img_blob, 2
    rounds each way (the statistics move over the rounds, the fused block
-   equals the host loop in params and statistics, rounds/s over blocks
-   of one round), and FedOpt-adam on it through ``fed_launch.main``,
+   equals the host loop in params and statistics, rounds/s of one run of
+   a one-round block), and FedOpt-adam on it through ``fed_launch.main``,
    whose statistics stay at FedAvg's plain average after a round (1e-6)
    while its params move;
 17. drives the char LSTM on shakespeare_gen (715 clients) and the
@@ -120,7 +120,38 @@
 18. runs one round of each new model at a cut size on the card and on the
    CPU from the same weights (TF32 off) and compares the params and BN
    statistics (atol 1e-4), beside the CPU round's drift from a 1e-7
-   relative perturbation of its params.
+   relative perturbation of its params;
+19. holds the aggregation kernel against its plain version at the rest of
+   the zoo's D (MobileNet 3,331,364, MobileNetV3-LARGE 4,353,018, VGG-11
+   28,144,010 / 28,512,740 at 10 / 100 classes and 28,119,428 on
+   img_blob, EfficientNet-b0 4,177,664, SegNet 196,067; each checked
+   against its model's state dict) and times it beside the plain version
+   and torch.mv at 10 clients;
+20. drives the slice's main path, MobileNet v1 (width 1.0, 100 classes)
+   on fed_cifar100_gen through ``main_fedavg.main --model mobilenet``
+   with phase 15's flags: 3 host-loop rounds and 3 in fused blocks of 2,
+   one aggregation launch a round (one more a capture's warm-up), finite
+   metrics (a BN model's test loss rises over its first rounds: it is
+   printed, not required to fall), the BN statistics moving, a fused
+   block against the host loop (params and statistics, 1e-6, cuDNN
+   deterministic, timed), rounds/s of both (median and spread of 3 runs
+   of a round), device ms, busy share, launch calls, each graph's capture
+   time and pool;
+21. the same for MobileNetV3-LARGE and EfficientNet-b0 (fed_cifar100_gen)
+   and VGG-11 (img_blob's 32x32 images: it needs 32x32), 2 host rounds
+   and a fused block of 2 each, one timed round each way (the host and
+   the fused round's wall, a replay's device ms by CUDA events, a train
+   step's launch calls),
+   EfficientNet's fused block against its host loop with drop-connect and
+   dropout on (1e-6); then hierarchical FedAvg and TurboAggregate, 2
+   rounds each on MobileNet through ``fed_launch.main``, with their
+   launches;
+22. drives FedSeg, SegNet (width 32) on seg_shapes through
+   ``fed_launch.main --algo fedseg`` under ``ce`` and ``focal``, 3 rounds
+   each: one launch a round, finite test mIoU, FWIoU and class accuracy,
+   a falling test loss; then one cut round of each zoo model on the card
+   and on the CPU from the same weights (TF32 off), params and BN
+   statistics against atol 1e-4 beside the CPU round's own drift.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -132,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -161,6 +193,9 @@ MAIN_FLAGS = ["--dataset", "femnist_gen", "--client_num_in_total",
               "--batch_size", "20", "--epochs", "1", "--lr", "0.1",
               "--device", "cuda"]
 FUSED_R = 5  # rounds a fused dispatch
+# rounds of a profiled fused block on the CNN paths (4a-4b, 11): the
+# whole script's time limit takes fewer than FUSED_R
+PROFILED_R = 2
 # FedOpt's server Adam step (Reddi et al., 2021, tune it near 1e-2.5 for
 # the EMNIST CNN)
 FEDOPT_LR = 0.003
@@ -216,6 +251,32 @@ SO_FLAGS = ["--dataset", "stackoverflow_nwp_gen", "--client_num_in_total",
 # one round of a cut anchor model, card against CPU, TF32 off: params and
 # BN statistics (the transformer round's bound, phase 7)
 ANCHOR_CPU_ATOL = 1e-4
+# the rest of the zoo (phases 19-22): the aggregation kernel's D, params
+# and BN statistics, at 100 classes (VGG-11 also at 10, and at img_blob's
+# 4 on its path; SegNet at width 32 and 3 classes)
+ZOO_D = {"mobilenet": 3_331_364, "mobilenet_v3": 4_353_018,
+         "vgg11_10": 28_144_010, "vgg11": 28_512_740,
+         "vgg11_img_blob": 28_119_428, "efficientnet-b0": 4_177_664,
+         "segnet": 196_067}
+ZOO_R = 2  # rounds a fused dispatch on the zoo's paths
+# the zoo's BatchNorm models evaluate with the running statistics, which
+# start at (0, 1) and move toward the clients' averaged batch statistics:
+# over the first rounds their test loss rises from ln(classes) on
+# fed_cifar100_gen (at lr 0.1, 0.03 and 0.01 alike) and on img_blob, as
+# the JAX package's rounds do (the port's are held to them), so phases
+# 20-21 require finite metrics and moving statistics, and print the loss
+# VGG-11 needs inputs of at least 32x32 (five 2x2 pools): fed_cifar100's
+# 24x24 crops are too small, so it runs on img_blob's 32x32 images (4
+# classes), ResNet-56's path (phase 16)
+ZOO_FLAGS = {"mobilenet": R18_FLAGS + ["--model", "mobilenet"],
+             "mobilenet_v3": R18_FLAGS + ["--model", "mobilenet_v3"],
+             "vgg11": IMG_FLAGS + ["--model", "vgg11"],
+             "efficientnet-b0": R18_FLAGS + ["--model", "efficientnet-b0"]}
+# FedSeg: SegNet (width 32) on seg_shapes, 10 clients of 16 32x32 images
+SEG_FLAGS = ["--algo", "fedseg", "--dataset", "seg_shapes",
+             "--client_num_in_total", "10", "--client_num_per_round", "5",
+             "--batch_size", "8", "--epochs", "1", "--lr", "0.1",
+             "--device", "cuda"]
 
 
 def log(msg: str) -> None:
@@ -1443,18 +1504,18 @@ def _host_vs_fused_timing(parts, compute_dtype=None, reps=3,
     from fedml_tpu_torch.ops import aggregate
 
     make_api = make_api or _main_api
-    first, timed = 2, 2 * FUSED_R
+    first, timed = 2, FUSED_R
     span = range(first, first + timed)
     host = make_api(parts, first + timed, compute_dtype=compute_dtype)
     for r in range(first):
         host.run_round(r)
     host_rps = _rounds_per_s(lambda: [host.run_round(r) for r in span],
                              timed, reps)
-    # the first two timed rounds under the profiler (two cohorts; their
-    # ~8,000 launches a round make the trace's processing the slowest part
-    # of this phase): the busy share takes their mean device time against
-    # the rate over all the timed rounds
-    host_prof = _profile(lambda: [host.run_round(r) for r in span[:2]], 2)
+    # the first timed round under the profiler (its ~8,000 launches make
+    # the trace's processing the slowest part of this phase): the busy
+    # share takes its device time against the rate over all the timed
+    # rounds
+    host_prof = _profile(lambda: host.run_round(span[0]), 1)
 
     api = make_api(parts, first + timed, compute_dtype=compute_dtype)
     fused = api.fused_rounds()
@@ -1464,27 +1525,32 @@ def _host_vs_fused_timing(parts, compute_dtype=None, reps=3,
             fused.run_rounds(r, FUSED_R)
     blocks()  # captures the graph of every pad bucket the rounds use
     fused_rps = _rounds_per_s(blocks, timed, reps)
+    # profiled blocks of PROFILED_R rounds (the trace of a replay's ~8,600
+    # kernels takes seconds to process); the block runs once first, to
+    # capture its pad bucket's graph if no FUSED_R block had that bucket
+    fused.run_rounds(first, PROFILED_R)
     before = aggregate.weighted_mean_flat.launches
-    fused_prof = _profile(lambda: fused.run_rounds(first, FUSED_R), FUSED_R)
+    fused_prof = _profile(lambda: fused.run_rounds(first, PROFILED_R),
+                          PROFILED_R)
     driver = aggregate.weighted_mean_flat.launches - before
-    if not fused_prof["wmean_kernels"] == driver == FUSED_R:
+    if not fused_prof["wmean_kernels"] == driver == PROFILED_R:
         raise AssertionError(
-            f"a profiled fused block of {FUSED_R} rounds: the profiler saw "
-            f"{fused_prof['wmean_kernels']} aggregation kernels, the driver "
-            f"counted {driver}")
+            f"a profiled fused block of {PROFILED_R} rounds: the profiler "
+            f"saw {fused_prof['wmean_kernels']} aggregation kernels, the "
+            f"driver counted {driver}")
     # a new driver's first block, under the profiler: its capture records
     # the kernel without running it, its warm-up round runs it once
     fresh = api.fused_rounds()
     before = aggregate.weighted_mean_flat.launches
-    capture_prof = _profile(lambda: fresh.run_rounds(first, FUSED_R),
-                            FUSED_R)
+    capture_prof = _profile(lambda: fresh.run_rounds(first, PROFILED_R),
+                            PROFILED_R)
     counted = aggregate.weighted_mean_flat.launches - before
     if not (capture_prof["wmean_kernels"] == counted
-            == FUSED_R + len(fresh.graphs)):
+            == PROFILED_R + len(fresh.graphs)):
         raise AssertionError(
             f"a profiled fused block with {len(fresh.graphs)} captures: the "
             f"profiler saw {capture_prof['wmean_kernels']} aggregation "
-            f"kernels, the driver counted {counted}, {FUSED_R} rounds")
+            f"kernels, the driver counted {counted}, {PROFILED_R} rounds")
     padding = _padding_steps(fused, first)
     bf16 = compute_dtype == "bfloat16"
     for name, prof in (("host loop", host_prof), ("fused", fused_prof)):
@@ -1517,7 +1583,7 @@ def _host_vs_fused_timing(parts, compute_dtype=None, reps=3,
             f"round, busy {100 * rec['busy_share']:.1f}%; launch calls a "
             f"round {rec['launch_calls_per_round']}")
     log(f"{label} fused: the profiler saw {fused_prof['wmean_kernels']} "
-        f"aggregation kernels in {FUSED_R} rounds (the driver counted "
+        f"aggregation kernels in {PROFILED_R} rounds (the driver counted "
         f"{driver}); in a block with {len(fresh.graphs)} capture(s), "
         f"{capture_prof['wmean_kernels']} (the driver counted {counted}); "
         f"{len(fused_prof['bf16_kernels'])} bf16 kernel names; graphs "
@@ -1595,7 +1661,7 @@ def phase_fused_bf16():
         f"abs {diff:.3g}); an f32 round from 2**-9-perturbed weights "
         f"{ref_l2:.4f} (bounds {BF16_VS_F32_MIN_FACTOR}x and "
         f"{BF16_VS_F32_FACTOR}x)")
-    timing = _host_vs_fused_timing(parts, "bfloat16")
+    timing = _host_vs_fused_timing(parts, "bfloat16", reps=1)
     return {"launches": launches, "evals": recs,
             "bf16_vs_f32_max_abs_diff": diff, "bf16_vs_f32_rel_l2": bf16_l2,
             "perturbed_f32_rel_l2": ref_l2, "timing": timing}
@@ -1808,16 +1874,18 @@ def phase_fedopt_path():
         f"{FEDOPT_SGD_TOL})")
     out.update(fused_vs_host_max_abs_diff=diff, sgd_vs_fedavg=sgd_diff,
                timing=_host_vs_fused_timing(parts, make_api=_fedopt_api,
-                                            label="fedopt-adam f32"))
+                                            label="fedopt-adam f32", reps=1))
     return out
 
 
-def _hierarchical_launches(seed, group_num, group_rounds, rounds):
-    """The aggregation launches hierarchical FedAvg makes: a group round a
-    launch for every group with sampled clients, and the global mean."""
+def _hierarchical_launches(seed, group_num, group_rounds, rounds,
+                           n=MAIN_CLIENTS):
+    """The aggregation launches hierarchical FedAvg makes over ``n``
+    clients: a group round a launch for every group with sampled clients,
+    and the global mean."""
     from fedml_tpu_torch.core.sampling import (locked_global_numpy_rng,
                                                sample_clients)
-    n, k = MAIN_CLIENTS, HEADLINE[0]
+    k = HEADLINE[0]
     with locked_global_numpy_rng(seed) as rng:
         groups = rng.randint(0, group_num, n)
     return sum(len({int(groups[c]) for c in sample_clients(r, n, k)})
@@ -2222,7 +2290,7 @@ def phase_resnet56_path():
                fedopt={"launches": launches, "evals": recs, "wall_s": wall,
                        "stats_vs_plain_average": stats_diff,
                        "params_vs_fedavg": params_diff},
-               timing=_anchor_timing(parts, "resnet56", rounds=1))
+               timing=_anchor_timing(parts, "resnet56", rounds=1, reps=1))
     return out
 
 
@@ -2303,11 +2371,11 @@ def phase_lstm_paths():
             f"body gates {steps} steps, so its graph would hold about "
             f"{per_step * steps} nodes")
         if name == "shakespeare":
-            api.run_round(0)
-            rps = _rounds_per_s(lambda: api.run_round(1), 1, reps=1)
+            # its first round: the path's runs above already ran the model
+            rps = _rounds_per_s(lambda: api.run_round(0), 1, reps=1)
             out[name]["host_rounds_per_s"] = rps
             log(f"shakespeare host loop: {rps['median']:.3f} rounds/s (one "
-                "run of round 1); it is not captured (T = 80, two "
+                "run of round 0); it is not captured (T = 80, two "
                 "layers)")
     so = _anchor_parts(SO_FLAGS)
     diff, _ = _fused_vs_host(so, ANCHOR_R)
@@ -2318,18 +2386,17 @@ def phase_lstm_paths():
         f"(T = 21): max abs diff {diff:.3g} (bound 1e-6)")
     out["stackoverflow"].update(
         fused_vs_host_max_abs_diff=diff,
-        timing=_anchor_timing(so, "stackoverflow LSTM", rounds=1))
+        timing=_anchor_timing(so, "stackoverflow LSTM", rounds=1, reps=1))
     return out
 
 
-def _cpu_drift(ds, make, task, cfg):
+def _cpu_drift(ds, make, cfg, api_cls):
     """How far one CPU round moves from a 1e-7 relative perturbation of its
     params: the round's own sensitivity, the scale of a card-vs-CPU
-    difference that comes from rounding alone."""
+    difference that comes from rounding alone. ``api_cls(ds, model,
+    config=, device=)`` builds the round's API."""
     import torch
-    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
-    apis = [FedAvgAPI(ds, make(), task=task, config=cfg, device="cpu")
-            for _ in range(2)]
+    apis = [api_cls(ds, make(), config=cfg, device="cpu") for _ in range(2)]
     gen = torch.Generator().manual_seed(18)
     apis[1].variables = {
         k: v if "running_" in k else
@@ -2396,7 +2463,8 @@ def phase_anchor_card_vs_cpu():
                        if "running_" not in k} for a in apis)),
                 "stats": (_max_diff(*(_stats_of(a.variables) for a in apis))
                           if _stats_of(apis[1].variables) else None),
-                "cpu_drift_1e-7": _cpu_drift(ds, make, task, cfg)}
+                "cpu_drift_1e-7": _cpu_drift(
+                    ds, make, cfg, functools.partial(FedAvgAPI, task=task))}
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
@@ -2414,10 +2482,287 @@ def phase_anchor_card_vs_cpu():
             for k, v in out.items()) + f" (atol {ANCHOR_CPU_ATOL})")
     return out
 
+# -- the rest of the CV zoo and FedSeg (phases 19-22) ------------------------
+
+def phase_zoo_kernel():
+    """The aggregation kernel at the zoo's D (each checked against its
+    model's state dict), against its plain version, timed beside it and
+    torch.mv at 10 clients."""
+    import torch
+    from fedml_tpu_torch.models import create_model
+    for name, d in ZOO_D.items():
+        model, classes = {"vgg11_10": ("vgg11", 10),
+                          "vgg11_img_blob": ("vgg11", 4),
+                          "segnet": ("segnet", 3)}.get(name, (name, 100))
+        with torch.device("meta"):
+            sd = create_model(model, classes).state_dict()
+        if sum(v.numel() for v in sd.values()) != d:
+            raise AssertionError(f"{name}: D {d} is not its model's")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    return {name: _wmean_timed(HEADLINE[0], d, gen,
+                               2 if d > 5_000_000 else 4,
+                               40 if d > 5_000_000 else 200)
+            for name, d in ZOO_D.items()}
+
+
+def phase_mobilenet_path():
+    """The slice's main path: FedAvg on MobileNet v1 (width 1.0, 100
+    classes) on fed_cifar100_gen through main_fedavg, host loop and fused
+    blocks; a fused block against the host loop (params and BN statistics,
+    cuDNN deterministic, timed), the statistics moving, rounds/s."""
+    from fedml_tpu_torch.experiments import main_fedavg
+    flags = ZOO_FLAGS["mobilenet"]
+    out = _path_runs(main_fedavg, "mobilenet", flags, 3, 2, ZOO_R,
+                     falls=False)
+    parts = _anchor_parts(flags)
+    t = time.perf_counter()
+    diff, host = _fused_vs_host(parts, ZOO_R)
+    check_s = time.perf_counter() - t
+    start = _stats_of(_main_api(parts, 1).variables)
+    moved = min(float((host.variables[k] - v).abs().max())
+                for k, v in start.items())
+    if not diff <= 1e-6 or not moved > 0:
+        raise AssertionError(f"mobilenet: fused vs host loop {diff}, the "
+                             f"least-moved BN statistic {moved}")
+    log(f"mobilenet: {len(start)} BN statistics, each moved over the rounds "
+        f"(least by {moved:.3g}); fused block == host loop over {ZOO_R} "
+        f"rounds, params and statistics: max abs diff {diff:.3g} (bound "
+        f"1e-6; the check under cuDNN's deterministic algorithms took "
+        f"{check_s:.1f} s)")
+    out.update(fused_vs_host_max_abs_diff=diff, least_stat_move=moved,
+               deterministic_check_s=check_s,
+               timing=_anchor_timing(parts, "mobilenet", rounds=1))
+    return out
+
+
+def phase_zoo_models():
+    """MobileNetV3-LARGE and EfficientNet-b0 (fed_cifar100_gen) and VGG-11
+    (img_blob) at full width through main_fedavg: 2 host rounds and a
+    fused block of 2 each, EfficientNet's fused block against its host
+    loop with drop-connect and dropout on, one timed run each; then
+    hierarchical FedAvg and TurboAggregate on MobileNet through
+    fed_launch."""
+    from fedml_tpu_torch.experiments import fed_launch, main_fedavg
+    out = {}
+    for name in ("mobilenet_v3", "vgg11", "efficientnet-b0"):
+        flags = ZOO_FLAGS[name]
+        out[name] = _path_runs(main_fedavg, name, flags, ZOO_R, 1, ZOO_R,
+                               falls=False)
+        parts = _anchor_parts(flags)
+        if name == "efficientnet-b0":
+            t = time.perf_counter()
+            diff, _ = _fused_vs_host(parts, ZOO_R)
+            check_s = time.perf_counter() - t
+            if not diff <= 1e-6:
+                raise AssertionError(f"efficientnet-b0 fused block vs host "
+                                     f"loop (drop-connect on): {diff}")
+            log(f"efficientnet-b0 fused block == host loop over {ZOO_R} "
+                f"rounds with drop-connect and dropout on: max abs diff "
+                f"{diff:.3g} (bound 1e-6; {check_s:.1f} s)")
+            out[name].update(fused_vs_host_max_abs_diff=diff,
+                             deterministic_check_s=check_s)
+        out[name]["timing"] = _round_timing(parts, name)
+    flags = ZOO_FLAGS["mobilenet"] + ["--comm_round", str(ZOO_R),
+                                      "--frequency_of_the_test", "1"]
+    for algo, extra, launches in (
+            ("hierarchical", ["--group_num", "2", "--group_comm_round", "2"],
+             _hierarchical_launches(0, 2, 2, ZOO_R, n=500)),
+            ("turboaggregate", [], 0)):
+        final, got, _, recs, wall = _launch_run(
+            fed_launch, ["--algo", algo, *flags, *extra],
+            f"chip_smoke_mobilenet_{algo}")
+        if got != launches:
+            raise AssertionError(f"mobilenet {algo}: {got} aggregation "
+                                 f"launches, want {launches}")
+        _check_evals(f"mobilenet {algo}", recs, list(range(ZOO_R)),
+                     falls=False)
+        out[f"mobilenet_{algo}"] = {"launches": got, "evals": recs,
+                                    "wall_s": wall}
+        log(f"mobilenet {algo} through fed_launch: {ZOO_R} rounds, {got} "
+            f"aggregation launches, test loss {recs[0]['test_loss']:.4f} -> "
+            f"{recs[-1]['test_loss']:.4f} (wall {wall:.1f}s)")
+    return out
+
+
+def _round_timing(parts, label):
+    """One host round and one fused round of a model at a cut cost: the
+    host round's and the fused round's wall (host clock around a
+    synchronized round; the kernels' algorithms are already chosen by the
+    path's runs), the fused round's device ms by CUDA events around one
+    replay of its graph (median of 3; the round is device-bound, so the
+    events hold its device time), the graph's capture time and pool, and
+    the launch calls of one train step (every client holds whole batches
+    here, so a host round makes about that many times its real steps)."""
+    import torch
+    api = _main_api(parts, 4)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    api.run_round(0)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    fused = api.fused_rounds()
+    fused.run_rounds(1, 1)  # captures the round's graph
+    t = time.perf_counter()
+    fused.run_rounds(2, 1)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t
+    block = fused._block_inputs(3, 1)
+    fused._run_graph(block, 1)  # captures a new pad bucket's graph, if any
+    replay_ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        fused._run_graph(block, 1)
+        end.record()
+        end.synchronize()
+        replay_ms.append(start.elapsed_time(end))
+    graphs = [{"capture_s": g.capture_s, "pool_bytes": g.pool_bytes}
+              for g in fused.graphs.values()]
+    out = {"host_rounds_per_s": 1 / host_s,
+           "fused_rounds_per_s": 1 / fused_s,
+           "fused_device_ms_per_round": sorted(replay_ms)[1],
+           "launches_per_step": _step_launches(parts), "graphs": graphs}
+    log(f"{label}: host loop {out['host_rounds_per_s']:.3f} rounds/s, fused "
+        f"{out['fused_rounds_per_s']:.3f} rounds/s (one round each); a "
+        f"replay {out['fused_device_ms_per_round']:.2f} ms on the device; "
+        f"{out['launches_per_step']} launch calls a train step; graphs "
+        "(capture s, pool MiB): "
+        + ", ".join(f"({g['capture_s']:.2f}, {g['pool_bytes'] / 2**20:.0f})"
+                    for g in graphs))
+    return out
+
+
+def phase_fedseg_path():
+    """FedSeg: SegNet (width 32) on seg_shapes through ``fed_launch.main
+    --algo fedseg`` under each loss, 3 rounds: one launch a round, finite
+    IoU metrics, a falling test loss."""
+    from fedml_tpu_torch.experiments import fed_launch
+    out = {}
+    for loss in ("ce", "focal"):
+        final, got, _, recs, wall = _launch_run(fed_launch, [
+            *SEG_FLAGS, "--seg_loss", loss, "--comm_round", "3",
+            "--frequency_of_the_test", "2"], f"chip_smoke_fedseg_{loss}")
+        if got != 3:
+            raise AssertionError(f"fedseg {loss}: {got} launches in 3 rounds")
+        _check_evals(f"fedseg {loss}", recs, [0, 2])
+        for r in recs:
+            for k in ("test_mIoU", "test_FWIoU", "test_acc_class"):
+                if not math.isfinite(r[k]):
+                    raise AssertionError(f"fedseg {loss}: {k}={r[k]}")
+        out[loss] = {"launches": got, "evals": recs, "wall_s": wall}
+        log(f"fedseg ({loss}) through fed_launch: 3 rounds, {got} "
+            f"aggregation launches, test loss {recs[0]['test_loss']:.4f} -> "
+            f"{recs[-1]['test_loss']:.4f}, mIoU {recs[-1]['test_mIoU']:.4f}, "
+            f"FWIoU {recs[-1]['test_FWIoU']:.4f}, class acc "
+            f"{recs[-1]['test_acc_class']:.4f} (wall {wall:.1f}s)")
+    return out
+
+
+def _zoo_cut_cases():
+    """name -> (dataset, model factory, API factory, TrainConfig fields)
+    of one cut round of each zoo model (phase 22's card-vs-CPU check)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
+    from fedml_tpu_torch.data.synthetic import (make_image_blob_federated,
+                                                make_shapes_segmentation)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.mobilenet import MobileNet
+    from fedml_tpu_torch.models.mobilenet_v3 import MobileNetV3
+    from fedml_tpu_torch.models.segnet import SegNet
+
+    img = make_image_blob_federated(client_num=4, samples_per_client=12,
+                                    seed=1)
+    seg = make_shapes_segmentation(client_num=4, samples_per_client=8)
+    fedavg = functools.partial(FedAvgAPI, task="classification")
+    image = dict(batch_size=12, lr=0.01)
+    # MobileNet v1 (27 BN + ReLU layers, no residual) has a chaotic
+    # gradient at init, so its round steps at lr 3e-4 to keep the CPU's
+    # own drift (printed beside) under the bound
+    return {
+        "mobilenet": (img, lambda: MobileNet(img.class_num, 0.25), fedavg,
+                      dict(image, lr=3e-4)),
+        "mobilenet_v3": (img, lambda: MobileNetV3(img.class_num,
+                                                  multiplier=0.25),
+                         fedavg, image),
+        "vgg11": (img, lambda: create_model("vgg11", img.class_num),
+                  fedavg, image),
+        "efficientnet-b0": (img, lambda: create_model(
+            "efficientnet-b0", img.class_num), fedavg, image),
+        "segnet": (seg, lambda: SegNet(3, 8), FedSegAPI,
+                   dict(batch_size=8, lr=0.1))}
+
+
+def phase_zoo_card_vs_cpu():
+    """One round of each zoo model at a cut size on the card and on the CPU
+    from the same weights (TF32 off): params and BN statistics against
+    ANCHOR_CPU_ATOL, beside the CPU round's own drift."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, (ds, make, api_cls, tc) in _zoo_cut_cases().items():
+            cfg = FedAvgConfig(comm_round=1, client_num_per_round=4,
+                               prefetch_depth=0, train=TrainConfig(
+                                   epochs=1, shuffle=False, **tc))
+            apis = [api_cls(ds, make(), config=cfg, device=d)
+                    for d in ("cuda", "cpu")]
+            if _max_diff(apis[0].variables, apis[1].variables) != 0:
+                raise AssertionError(f"{name}: initial weights differ")
+            for api in apis:
+                api.run_round(0)
+            out[name] = {
+                "params": _max_diff(
+                    *({k: v for k, v in a.variables.items()
+                       if "running_" not in k} for a in apis)),
+                "stats": (_max_diff(*(_stats_of(a.variables) for a in apis))
+                          if _stats_of(apis[1].variables) else None),
+                "cpu_drift_1e-7": _cpu_drift(ds, make, cfg, api_cls)}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    bad = {k: v for k, v in out.items()
+           if not all(v[f] is None or v[f] <= ANCHOR_CPU_ATOL
+                      for f in ("params", "stats"))}
+    if bad:
+        raise AssertionError(f"zoo rounds card vs CPU: {bad}")
+    log("one round of each zoo model, card vs CPU (TF32 off), max abs "
+        "diff of params / BN statistics (the CPU round's drift from a 1e-7 "
+        "perturbation): " + ", ".join(
+            f"{k} {v['params']:.3g} / "
+            + ("-" if v["stats"] is None else f"{v['stats']:.3g}")
+            + f" ({v['cpu_drift_1e-7']:.3g})"
+            for k, v in out.items()) + f" (atol {ANCHOR_CPU_ATOL})")
+    return out
+
+
+def _build_each_federation_once() -> None:
+    """Each generated federation is built once in a run and handed to every
+    later entry-point call with the same arguments: the builders are pure
+    functions of them (byte-identical to the JAX package's) and no path
+    writes into a dataset, so the paths see the same data while the run
+    spends its time limit on the card, not on ~40 rebuilds."""
+    from fedml_tpu_torch.data import flagship_gen, leaf_gen
+    for mod, name in ((flagship_gen, "build_femnist_federation"),
+                      (flagship_gen, "build_fedcifar100_federation"),
+                      (flagship_gen, "build_stackoverflow_nwp_federation"),
+                      (leaf_gen, "build_shakespeare_federation")):
+        setattr(mod, name, functools.lru_cache(maxsize=None)(
+            getattr(mod, name)))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    _build_each_federation_once()
     record = {"device": phase_device_and_build()}
     record["kernel"] = phase_kernel_vs_plain()
     record["main_path"] = phase_main_path()
@@ -2440,7 +2785,13 @@ def main() -> None:
     record["resnet56_path"] = phase_resnet56_path()
     record["lstm_paths"] = phase_lstm_paths()
     record["anchor_card_vs_cpu"] = phase_anchor_card_vs_cpu()
+    record["zoo_kernel"] = phase_zoo_kernel()
+    record["mobilenet_path"] = phase_mobilenet_path()
+    record["zoo_models"] = phase_zoo_models()
+    record["fedseg_path"] = phase_fedseg_path()
+    record["zoo_card_vs_cpu"] = phase_zoo_card_vs_cpu()
     k = record["kernel"]
+    zoo = record["zoo_models"]
     kernels = [{
         "name": "wmean_f32", "route": "cuda",
         "source": "fedml_tpu_torch/csrc/aggregate.cu",
@@ -2460,9 +2811,20 @@ def main() -> None:
                 record["resnet56_path"]["fedopt"]["launches"],
             **{m: record["lstm_paths"][m]["launches"]
                for m in ("shakespeare", "stackoverflow")}},
+        "launches_zoo": {
+            **{f"mobilenet_{mode}": record["mobilenet_path"][mode]["launches"]
+               for mode in ("host", "fused")},
+            **{f"{m}_{mode}": zoo[m][mode]["launches"]
+               for m in ("mobilenet_v3", "vgg11", "efficientnet-b0")
+               for mode in ("host", "fused")},
+            **{f"mobilenet_{a}": zoo[f"mobilenet_{a}"]["launches"]
+               for a in ("hierarchical", "turboaggregate")},
+            **{f"fedseg_{loss}": record["fedseg_path"][loss]["launches"]
+               for loss in ("ce", "focal")}},
         "at_anchor_d": {m: {f: v[f] for f in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "library_ms")} for m, v in record["anchor_kernel"].items()},
+            "library_ms")} for m, v in {**record["anchor_kernel"],
+                                        **record["zoo_kernel"]}.items()},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]

@@ -16,8 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from fedml_tpu_torch.data.base import FederatedDataset
-from fedml_tpu_torch.trainer.functional import (TrainConfig,
-                                                refuse_collections)
+from fedml_tpu_torch.trainer.functional import TrainConfig
 from fedml_tpu_torch.trainer.torch_trainer import TorchModelTrainer
 
 
@@ -28,7 +27,6 @@ class CentralizedTrainer:
                  task: str = "classification",
                  cfg: Optional[TrainConfig] = None, seed: int = 0,
                  device="cuda"):
-        refuse_collections(module, "the centralized trainer")
         self.dataset = dataset
         self.trainer = TorchModelTrainer(module, task, cfg or TrainConfig(),
                                          seed=seed, device=device)

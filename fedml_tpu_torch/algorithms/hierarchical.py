@@ -15,7 +15,8 @@ JAX package pads each group's clients to a power-of-two bucket with
 zero-weight copies, only to bound how many shapes XLA compiles
 (``hierarchical.py:47-52, 103-129``); a zero-weight client changes no
 number of the weighted mean, so the port trains each group's real clients
-alone.
+alone. The means take the whole state dict, a model's BatchNorm
+statistics with its params, as the JAX package's take its variables.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from fedml_tpu_torch.models.common import init_params
 from fedml_tpu_torch.trainer.functional import (TrainConfig,
                                                 make_batch_schedule,
                                                 make_eval, make_local_train,
-                                                refuse_collections,
                                                 stack_schedules,
                                                 validate_accum_steps)
 from fedml_tpu_torch.utils.device import resolve_device
@@ -70,7 +70,6 @@ class HierarchicalFedAvgAPI:
         cfg = self.config
         if cfg.group_method != "random":
             raise ValueError(f"unknown group_method {cfg.group_method!r}")
-        refuse_collections(module, "hierarchical FedAvg")
         if cfg.train.lr_decay_round != 1.0:
             raise NotImplementedError(
                 "lr_decay_round is not defined for the 2-tier loop (which "

@@ -18,9 +18,13 @@ secure-sum round:
    coded evaluations reconstruct.
 
 The float <-> field boundary is the only approximation (2^-frac_bits
-round-off per client); the protocol itself is exact. The share exchange is
-numpy int64 arithmetic on the host, so a round copies the clients' models
-off the device; local training stays on the device.
+round-off per client); the protocol itself is exact. The whole state dict
+goes through it, a model's BatchNorm statistics too, as the JAX package's
+variables do: the field holds a coordinate's sum of ``n_i * value`` below
+``p / 2**(frac_bits + 1)`` (2**14 at the defaults), past which it wraps in
+both packages alike. The share exchange is numpy int64 arithmetic on the
+host, so a round copies the clients' models off the device; local training
+stays on the device.
 """
 
 from __future__ import annotations
@@ -34,7 +38,6 @@ import torch
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.core import mpc
 from fedml_tpu_torch.core import pytree as pt
-from fedml_tpu_torch.trainer.functional import refuse_collections
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +118,6 @@ class SecureFedAvgAPI(FedAvgAPI):
                  config=None,
                  secure_config: Optional[TurboAggregateConfig] = None,
                  device="cuda"):
-        refuse_collections(module, "TurboAggregate's secure sum")
         self._secure = SecureAggregator(secure_config)
         self._secure_round = 0
 

@@ -22,8 +22,7 @@ import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
 from fedml_tpu_torch.data.base import FederatedDataset
-from fedml_tpu_torch.trainer.functional import (make_forward,
-                                                refuse_collections)
+from fedml_tpu_torch.trainer.functional import make_forward
 
 
 class LeaveOneOutMeasure:
@@ -41,9 +40,7 @@ class LeaveOneOutMeasure:
         self.influence: List[Optional[float]] = [None] * dataset.client_num
 
     def _train(self, delete_client: Optional[int]) -> FedAvgAPI:
-        module = self.module_factory()
-        refuse_collections(module, "leave-one-out contribution")
-        api = FedAvgAPI(self.ds, module, task=self.task,
+        api = FedAvgAPI(self.ds, self.module_factory(), task=self.task,
                         config=self.config, delete_client=delete_client,
                         device=self.device)
         for r in range(self.config.comm_round):

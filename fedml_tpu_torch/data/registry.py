@@ -1,8 +1,8 @@
 """Dataset dispatch by name, the experiment layer's ``load_data``.
 
 The port's subset of ``fedml_tpu.data.registry``: the synthetic federations
-(``blob``, the CLI default, ``powerlaw_blob``, ``synthetic``, ``img_blob``
-and ``token_blob``) and the generated reference-scale flagships
+(``blob``, the CLI default, ``powerlaw_blob``, ``synthetic``, ``img_blob``,
+``seg_shapes`` and ``token_blob``) and the generated reference-scale flagships
 (``femnist_gen``, ``fed_cifar100_gen``, ``mnist_gen``, ``shakespeare_gen``,
 ``stackoverflow_nwp_gen``), each paired with the JAX package's model and
 task. Names match the reference's ``--dataset`` flag values.
@@ -78,6 +78,12 @@ def _mnist_gen(data_dir, **kw):
         noise=kw.get("noise", 1.2))
 
 
+def _seg_shapes(data_dir, **kw):
+    from fedml_tpu_torch.data.synthetic import make_shapes_segmentation
+    return make_shapes_segmentation(
+        client_num=kw.get("client_num_in_total", 4))
+
+
 def _token_blob(data_dir, **kw):
     from fedml_tpu_torch.data.synthetic import make_token_federated
     return make_token_federated(
@@ -90,6 +96,7 @@ LOADERS: Dict[str, Callable[..., FederatedDataset]] = {
     "powerlaw_blob": _powerlaw_blob,    # 1000-client power-law sizes
     "img_blob": _img_blob,        # NHWC color patterns, the CIFAR ResNets
     "token_blob": _token_blob,    # Markov-chain tokens, the transformer LM
+    "seg_shapes": _seg_shapes,    # squares and circles, FedSeg's SegNet
     "femnist_gen": _femnist_gen,  # 3400 clients, 62 classes, ceiling 84.9%
     "fed_cifar100_gen": _fed_cifar100_gen,  # 500 clients, 100c, ceil 44.7%
     "mnist_gen": _mnist_gen,      # 1000 clients, 10 classes, ceiling 85%
@@ -105,6 +112,7 @@ DEFAULT_MODEL_AND_TASK = {
     "powerlaw_blob": ("lr", "classification"),
     "img_blob": ("resnet56", "classification"),
     "token_blob": ("transformer", "nwp"),
+    "seg_shapes": ("segnet", "segmentation"),
     "femnist_gen": ("cnn", "classification"),
     "fed_cifar100_gen": ("resnet18_gn", "classification"),
     "mnist_gen": ("lr", "classification"),

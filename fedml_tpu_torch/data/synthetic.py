@@ -6,7 +6,9 @@
 power-law client sizes (``powerlaw_blob``); ``make_synthetic_federated``
 the LEAF synthetic(alpha, beta) federation (``synthetic``);
 ``make_image_blob_federated`` NHWC color-gradient images (``img_blob``,
-the CIFAR ResNets' stand-in); ``make_token_federated`` the token
+the CIFAR ResNets' stand-in); ``make_shapes_segmentation`` pictures of
+squares and circles with pixel labels (``seg_shapes``, FedSeg's data);
+``make_token_federated`` the token
 federation of the transformer LM's next-word-prediction path
 (``token_blob``). Their draws are identical to those of the same functions
 in ``fedml_tpu.data.synthetic`` for the same arguments.
@@ -158,6 +160,46 @@ def make_image_blob_federated(
         train_local[c] = (x[idxs[n_test:]], y[idxs[n_test:]])
     return FederatedDataset.from_client_arrays(train_local, test_local,
                                                class_num)
+
+
+def make_shapes_segmentation(
+    client_num: int = 4,
+    samples_per_client: int = 16,
+    image_size: int = 32,
+    seed: int = 0,
+) -> FederatedDataset:
+    """Synthetic semantic segmentation (``seg_shapes``, FedSeg's data): a
+    bright square and a circle on a dark noisy background a picture, pixel
+    labels {0: background, 1: square, 2: circle} (the circle wins where
+    they overlap); learnable by the small SegNet within a few rounds."""
+    if image_size < 16:
+        raise ValueError(f"image_size must be >= 16 (got {image_size}): "
+                         "shape placement needs room for 8px squares")
+    rng = np.random.RandomState(seed)
+    s = image_size
+    yy, xx = np.mgrid[0:s, 0:s]
+
+    def sample(n):
+        imgs = rng.rand(n, s, s, 3).astype(np.float32) * 0.2
+        labels = np.zeros((n, s, s), np.int32)
+        for i in range(n):
+            cx, cy = rng.randint(4, s - 10, 2)
+            w = rng.randint(4, 8)
+            sq = (xx >= cx) & (xx < cx + w) & (yy >= cy) & (yy < cy + w)
+            imgs[i, sq] = [0.9, 0.2, 0.2] + 0.1 * rng.randn(3)
+            labels[i][sq] = 1
+            cx, cy = rng.randint(6, s - 6, 2)
+            r = rng.randint(3, 6)
+            ci = (xx - cx) ** 2 + (yy - cy) ** 2 <= r ** 2
+            imgs[i, ci] = [0.2, 0.3, 0.9] + 0.1 * rng.randn(3)
+            labels[i][ci] = 2
+        return imgs, labels
+
+    train_local, test_local = {}, {}
+    for c in range(client_num):
+        train_local[c] = sample(samples_per_client)
+        test_local[c] = sample(max(2, samples_per_client // 4))
+    return FederatedDataset.from_client_arrays(train_local, test_local, 3)
 
 
 def make_token_federated(

@@ -9,10 +9,11 @@ that dispatches any algorithm, fedml_experiments/distributed/fed_launch/).
 Each algorithm adds its flags to the shared federated set. The port runs
 fedavg (the simulation and cross-silo runners of ``main_fedavg``),
 fedavg_cross_silo, fedopt, fednova, fedavg_robust, hierarchical,
-turboaggregate, centralized, decentralized and contribution on
-``--device`` (default ``cuda``; without a GPU and without ``--device cpu``
-it raises). The other algorithms of ``ALGOS`` raise ``NotImplementedError``
-naming their ROADMAP item, before any data is built.
+turboaggregate, centralized, decentralized, contribution and fedseg
+(``--dataset seg_shapes``, ``--seg_loss ce|focal``) on ``--device``
+(default ``cuda``; without a GPU and without ``--device cpu`` it raises).
+The other algorithms of ``ALGOS`` raise ``NotImplementedError`` naming
+their ROADMAP item, before any data is built.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ ALGOS = ["fedavg", "fedavg_cross_silo", "fedopt", "fednova",
          "contribution", "fedavg_async"]
 
 #: algorithms the port does not run yet -> their ROADMAP Queue 1 item
-NOT_PORTED = {"fednas": "item 27", "fedgkt": "item 27", "fedseg": "item 27",
+NOT_PORTED = {"fednas": "item 27", "fedgkt": "item 27",
               "split_nn": "item 27", "vertical_fl": "item 27",
               "fedavg_async": "Slice D item 22e"}
 
@@ -97,6 +98,9 @@ def add_algo_args(parser: argparse.ArgumentParser):
                         default=4)
     # turboaggregate
     parser.add_argument("--frac_bits", type=int, default=16)
+    # fedseg (reference SegmentationLosses)
+    parser.add_argument("--seg_loss", type=str, default="ce",
+                        choices=["ce", "focal"])
 
 
 def _log_history(api, sink, fused_rounds: int = 0):
@@ -216,6 +220,16 @@ def _dispatch(args, ds, model, task, sink):
                               config=FedAvgConfig(**fedavg_common),
                               secure_config=TurboAggregateConfig(
                                   frac_bits=args.frac_bits, seed=args.seed))
+    elif args.algo == "fedseg":
+        from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+        from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
+        if ds.train_data_global[1].ndim != 3:
+            raise SystemExit(
+                "fedseg needs per-pixel labels [N, H, W] (e.g. --dataset "
+                f"seg_shapes); {args.dataset!r} labels have shape "
+                f"{ds.train_data_global[1].shape[1:]}")
+        api = FedSegAPI(ds, model, config=FedAvgConfig(**fedavg_common),
+                        loss_mode=args.seg_loss, device=dev)
     elif args.algo == "decentralized":
         return _run_decentralized(args, ds, sink)
     elif args.algo == "centralized":

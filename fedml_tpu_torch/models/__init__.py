@@ -16,8 +16,9 @@ from fedml_tpu_torch.models.lr import LogisticRegression
 
 def create_model(model_name: str, output_dim: int = 10,
                  input_shape: Optional[Sequence[int]] = None, **kw):
-    """Model factory with reference naming. ``input_shape`` is one
-    example's feature shape; ``lr`` needs it to size its layer.
+    """Model factory with reference naming, in the JAX package's order.
+    ``input_shape`` is one example's feature shape; ``lr`` needs it to size
+    its layer, and VGG its classifier (``(H, W, C)``; 32x32 without it).
     ``transformer`` and ``rnn_seq`` take ``output_dim`` as their vocab
     size and ``kw`` as the model's fields (``width``, ``depth``,
     ``attn_fn``...); ``rnn`` and ``rnn_stackoverflow`` ignore
@@ -37,6 +38,12 @@ def create_model(model_name: str, output_dim: int = 10,
     if model_name == "resnet110":
         from fedml_tpu_torch.models.resnet import resnet110
         return resnet110(num_classes=output_dim, **kw)
+    if model_name == "mobilenet":
+        from fedml_tpu_torch.models.mobilenet import MobileNet
+        return MobileNet(num_classes=output_dim, **kw)
+    if model_name == "mobilenet_v3":
+        from fedml_tpu_torch.models.mobilenet_v3 import MobileNetV3
+        return MobileNetV3(num_classes=output_dim, **kw)
     if model_name == "rnn":
         from fedml_tpu_torch.models.rnn import RNN_OriginalFedAvg
         return RNN_OriginalFedAvg(**kw)
@@ -52,4 +59,19 @@ def create_model(model_name: str, output_dim: int = 10,
     if model_name == "transformer":
         from fedml_tpu_torch.models.transformer import TransformerLM
         return TransformerLM(vocab_size=output_dim, **kw)
+    if model_name in ("vgg11", "vgg13", "vgg16", "vgg19"):
+        from fedml_tpu_torch.models.vgg import VGG
+        if input_shape is not None:
+            kw = {"image_size": tuple(input_shape[:2]), **kw}
+        return VGG(arch=model_name, num_classes=output_dim, **kw)
+    if model_name.startswith("efficientnet"):
+        from fedml_tpu_torch.models.efficientnet import efficientnet
+        return efficientnet(model_name, num_classes=output_dim)
+    if model_name == "segnet":
+        from fedml_tpu_torch.models.segnet import SegNet
+        return SegNet(num_classes=output_dim, **kw)
+    if model_name in ("resnet8_gkt", "resnet56_gkt_server", "darts"):
+        raise NotImplementedError(
+            f"model {model_name!r} is not ported yet: ROADMAP Queue 1, item "
+            "27 (it comes with FedGKT and FedNAS)")
     raise ValueError(f"unknown model: {model_name!r}")

@@ -1,9 +1,10 @@
 """Pieces shared by the model zoo: flax-matching initialization, dropout
 from an explicit key (a ``torch.Generator`` or a graph-safe
-:class:`DropoutKey`), and the layers whose semantics follow flax's rather
-than torch's: :class:`BatchNorm` (its running statistics handed back to the
-trainer, never written in place) and the :class:`LSTM` layer of flax's
-``OptimizedLSTMCell``."""
+:class:`DropoutKey`) and per-example drop-connect from the same key, and
+the layers whose semantics follow flax's rather than torch's:
+:class:`BatchNorm` (its running statistics handed back to the trainer,
+never written in place), :class:`SameConv2d` (flax's ``"SAME"`` padding)
+and the :class:`LSTM` layer of flax's ``OptimizedLSTMCell``."""
 
 from __future__ import annotations
 
@@ -89,7 +90,8 @@ class BatchNorm(nn.Module):
 
     Train mode normalizes with the statistics of the whole batch, padding
     rows included (the JAX forward sees the padded batch too), computed in
-    f32 as flax's ``use_fast_variance`` does: the *biased* variance
+    f32 (or the input's wider float) as flax's ``use_fast_variance`` does:
+    the *biased* variance
     ``E[x^2] - E[x]^2``, clipped at 0. The running statistics move by
     ``ra = 0.9 ra + 0.1 batch`` with that same variance, which is why
     ``F.batch_norm`` (it writes the unbiased variance) does not update
@@ -116,7 +118,7 @@ class BatchNorm(nn.Module):
                     "BatchNorm in train mode outside collect_batch_stats(): "
                     "its new running statistics would be lost")
             axes = [d for d in range(x.dim()) if d != 1]
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(axes)
             var = torch.clamp(torch.mean(xf * xf, axes) - mean * mean,
                               min=0.0)
@@ -198,18 +200,82 @@ DropoutRng = Union[torch.Generator, DropoutKey]
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,
-            generator: Optional[DropoutRng]) -> torch.Tensor:
+            generator: Optional[DropoutRng],
+            mask_shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """Inverted dropout as flax applies it: keep with probability ``1-p``
     and scale kept values by ``1/(1-p)``. The mask comes from ``generator``:
     a ``torch.Generator`` (``torch.rand``), or a :class:`DropoutKey` (a
     counter hash, kept where its 32 bits are at least ``p * 2**32``);
-    training without one raises rather than reading torch's global RNG."""
+    training without one raises rather than reading torch's global RNG.
+    ``mask_shape`` (default ``x.shape``) broadcasts one draw over the
+    other axes."""
     if not train or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs an explicit generator")
+    shape = tuple(x.shape) if mask_shape is None else tuple(mask_shape)
     if isinstance(generator, DropoutKey):
-        keep = generator.bits(x.shape, x.device) >= round(p * 2.0 ** 32)
+        keep = generator.bits(shape, x.device) >= round(p * 2.0 ** 32)
     else:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+        keep = torch.rand(shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def drop_connect(x: torch.Tensor, p: float, train: bool,
+                 generator: Optional[DropoutRng]) -> torch.Tensor:
+    """Per-example stochastic depth (EfficientNet's drop-connect): one
+    keep draw an example, a ``[B, 1, 1, 1]`` mask, kept examples scaled by
+    ``1/(1-p)``; the JAX package draws ``bernoulli(1-p)`` of that shape
+    (``fedml_tpu/models/efficientnet.py:93-99``), the port the same site of
+    the counter hash as :func:`dropout`."""
+    return dropout(x, p, train, generator,
+                   (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+# -- flax's "SAME" padding -----------------------------------------------------
+
+def same_pads(size: int, kernel: int, stride: int,
+              dilation: int = 1) -> Tuple[int, int]:
+    """``(before, after)`` padding of one spatial axis under flax's (XLA's)
+    ``"SAME"``: the output has ``ceil(size / stride)`` positions and the
+    total padding, split with the extra pixel after, is what that takes.
+    At stride 2 on an even size it is asymmetric, (0, 1) for a 3x3 kernel
+    and (1, 2) for a 5x5 one, which ``padding=k // 2`` does not give."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's default ``"SAME"`` padding, computed from
+    each input's spatial size (:func:`same_pads`): symmetric padding goes to
+    the convolution itself, an asymmetric one is an explicit ``F.pad``
+    first."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 bias: bool = False):
+        super().__init__(in_channels, out_channels, kernel, stride, 0,
+                         dilation, groups, bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (th, bh), (tw, bw) = (
+            same_pads(x.shape[d], self.kernel_size[i], self.stride[i],
+                      self.dilation[i]) for i, d in enumerate((2, 3)))
+        if th == bh and tw == bw:
+            pad = (th, tw)
+        else:
+            x, pad = F.pad(x, (tw, bw, th, bh)), (0, 0)
+        return F.conv2d(x, self.weight, self.bias, self.stride, pad,
+                        self.dilation, self.groups)
+
+
+def nested_flax_names(top: Dict[str, str], children) -> Dict[str, str]:
+    """A model's ``flax_names`` (utils/convert.py): its own ``{torch
+    submodule: flax module}`` entries, and each ``(torch prefix, flax
+    prefix, child)``'s own ``flax_names`` under those prefixes."""
+    names = dict(top)
+    for tprefix, fprefix, child in children:
+        for t, f in child.flax_names.items():
+            names[f"{tprefix}.{t}"] = f"{fprefix}/{f}"
+    return names

@@ -134,11 +134,19 @@ def flatten_stack(stacked_tree) -> torch.Tensor:
 def tree_weighted_mean_fused(stacked_tree, weights):
     """State-dict front end: flatten every leaf into one ``[C, D]`` buffer,
     launch :func:`weighted_mean_flat` once, and unflatten. Drop-in for
-    :func:`fedml_tpu_torch.core.pytree.tree_weighted_mean`."""
+    :func:`fedml_tpu_torch.core.pytree.tree_weighted_mean`.
+
+    Each leaf comes back in a tensor of its own, as the per-leaf mean's do,
+    not as a view into the ``[D]`` result: a host loop that trained its
+    next round on such views left the bits of a captured round, which
+    trains on its own buffers (most likely cuDNN and cuBLAS take other
+    kernels, with other rounding, for a view whose offset is not 16-byte
+    aligned)."""
     mean = weighted_mean_flat(flatten_stack(stacked_tree), weights)
     out, off = {}, 0
     for k, leaf in stacked_tree.items():
         n = leaf[0].numel()
-        out[k] = mean[off:off + n].reshape(leaf.shape[1:]).to(leaf.dtype)
+        out[k] = mean[off:off + n].reshape(leaf.shape[1:]).to(
+            leaf.dtype, copy=True)
         off += n
     return out

@@ -400,18 +400,6 @@ def param_names(module: torch.nn.Module) -> set:
     return {n for n, _ in module.named_parameters(remove_duplicate=False)}
 
 
-def refuse_collections(module: torch.nn.Module, what: str) -> None:
-    """Raise ``NotImplementedError`` when ``module`` has collections:
-    ``what`` has not been held to the JAX package on such a model, and
-    must not noise, step or average a running statistic unchecked."""
-    names = param_names(module)
-    colls = [k for k in module.state_dict() if k not in names]
-    if colls:
-        raise NotImplementedError(
-            f"{what} on a model with collections ({colls[0]}, ...) is not "
-            "held to the JAX package yet: ROADMAP Queue 1, item 17a")
-
-
 def next_colls(colls, new) -> dict:
     """The collections after a step: the forward's new value of each one
     it updated, detached and in the collection's dtype (f32 under

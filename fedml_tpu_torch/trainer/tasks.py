@@ -6,9 +6,9 @@ clients by plain addition. Every example row carries a 0/1 ``mask`` weight
 (padding rows are 0); the per-batch training loss is ``loss_sum / count``,
 torch's ``reduction='mean'`` over the real examples.
 
-The port has the classification, next-word-prediction and tag-prediction
-heads of ``fedml_tpu/trainer/tasks.py``; the segmentation heads come with
-the models that need them.
+The port has every head of ``fedml_tpu/trainer/tasks.py``:
+classification, next-word prediction, tag prediction and the two
+segmentation heads (per-pixel cross entropy and focal loss).
 """
 
 from __future__ import annotations
@@ -79,10 +79,56 @@ def tag_prediction_head(logits: torch.Tensor, targets: torch.Tensor,
     }
 
 
+# -- segmentation heads (reference fedseg SegmentationLosses, utils.py:71) --
+
+IGNORE_INDEX = 255  # Pascal-VOC convention: pixels out of loss and metrics
+
+
+def _pixel_mask(targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Valid-pixel weights: the example mask times (target != ignore)."""
+    valid = (targets != IGNORE_INDEX).to(torch.float32)
+    return valid * mask.view(tuple(mask.shape) + (1,) * (targets.dim() - 1))
+
+
+def _pixel_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-pixel softmax CE over NHWC logits ``[B, H, W, C]``, the ignored
+    pixels scored against class 0 (their weight is 0)."""
+    t = targets.long()
+    safe = torch.where(t == IGNORE_INDEX, 0, t)
+    return F.cross_entropy(logits.movedim(-1, 1), safe, reduction="none")
+
+
+def _pixel_stats(per_px, logits, targets, mask) -> Stats:
+    pm = _pixel_mask(targets, mask)
+    correct = (logits.argmax(-1) == targets).to(torch.float32)
+    return {"loss_sum": (per_px * pm).sum(), "count": pm.sum(),
+            "correct_sum": (correct * pm).sum()}
+
+
+def segmentation_head(logits: torch.Tensor, targets: torch.Tensor,
+                      mask: torch.Tensor) -> Stats:
+    """Mean per-valid-pixel CE (SegmentationLosses.CrossEntropyLoss):
+    logits ``[B, H, W, C]``, targets ``[B, H, W]``, 255 ignored."""
+    return _pixel_stats(_pixel_ce(logits, targets), logits, targets, mask)
+
+
+def segmentation_focal_head(logits: torch.Tensor, targets: torch.Tensor,
+                            mask: torch.Tensor, gamma: float = 2.0,
+                            alpha: float = 0.5) -> Stats:
+    """Focal loss ``-alpha * (1 - pt)**gamma * log pt`` per valid pixel
+    (SegmentationLosses.FocalLoss, utils.py:95-109)."""
+    logpt = -_pixel_ce(logits, targets)
+    pt = torch.exp(logpt)
+    per_px = -((1.0 - pt) ** gamma) * alpha * logpt
+    return _pixel_stats(per_px, logits, targets, mask)
+
+
 TASK_HEADS: Dict[str, TaskHead] = {
     "classification": classification_head,
     "nwp": nwp_head,
     "tag_prediction": tag_prediction_head,
+    "segmentation": segmentation_head,
+    "segmentation_focal": segmentation_focal_head,
 }
 
 

@@ -31,6 +31,10 @@ PORTED = {
     "centralized": [],
     "decentralized": ["--mode", "PUSHSUM"],
     "contribution": ["--comm_round", "2", "--client_num_in_total", "4"],
+    "fedseg": ["--dataset", "seg_shapes", "--client_num_in_total", "4",
+               "--client_num_per_round", "2", "--batch_size", "8",
+               "--comm_round", "2", "--frequency_of_the_test", "1",
+               "--model", "segnet"],
 }
 
 

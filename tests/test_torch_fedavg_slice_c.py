@@ -1,21 +1,28 @@
 """Rounds of the cross-device anchors' models against the JAX package:
 one FedAvg round of each new model (ResNet-18-GN cut to two stages,
 ResNet-56 to one block a stage, the three LSTMs at narrow widths), and
-FedOpt, weak DP and FedNova on a small ResNet-56, each from the same
-converted weights and BN statistics, shuffle off, no dropout. Params and
-``batch_stats`` are compared, and the JAX statistics must have moved. On
-the CPU the fused driver's gated round equals the host loop bit for bit
-on a BN model.
+FedOpt, weak DP and FedNova on a small ResNet-56, and the algorithms
+that carry the statistics whole since ROADMAP item 17a (hierarchical
+FedAvg, TurboAggregate's secure sum, the centralized trainer and
+leave-one-out contribution), each from the same converted weights and BN
+statistics, shuffle off, no dropout. Params and ``batch_stats`` are
+compared, and the JAX statistics must have moved. On the CPU the fused
+driver's gated round equals the host loop bit for bit on a BN model.
 
 Tolerances: rtol=1e-4, atol=1e-5 for params and statistics (torch and XLA
 sum a convolution's or a product's terms in another order); FedNova's
 momentum buffer rtol=1e-4, atol=1e-4 (the cumulative gradient over the
 client lr 0.1: ten times the params' error); the plain average of the
 statistics under FedOpt and weak DP is exact, bit for bit against the
-port's FedAvg.
+port's FedAvg; TurboAggregate's statistics lie within the field's
+fixed-point round-off (2**-15) of the plain mean, and leave-one-out
+influence within atol 1e-5 of JAX's (the contribution tests' bound).
 """
 
+from unittest import mock
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -269,29 +276,172 @@ def test_fused_block_equals_host_loop_on_a_bn_model(per_round):
         assert torch.equal(stats[k], torch.stack([s[k] for s in host_stats]))
 
 
-@pytest.mark.parametrize("build", ["hierarchical", "turboaggregate",
-                                   "centralized"])
-def test_unheld_algorithms_refuse_a_model_with_collections(build):
-    from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
-    from fedml_tpu_torch.algorithms.hierarchical import \
-        HierarchicalFedAvgAPI
+def _fast_init(flax_cls, start):
+    """flax's ``init`` of ``flax_cls`` returning fresh arrays of ``start``:
+    the JAX APIs init their models eagerly, seconds a model here, and
+    every run of a comparison starts from ``start`` anyway."""
+    return mock.patch.object(flax_cls, "init", lambda *a, **k: jax.tree.map(
+        jnp.asarray, start))
+
+
+def _bn_start(seed=5):
+    """A small ResNet-56's flax variables in float64 (one bottleneck block
+    a stage), the flax model and the port model. The item-17a comparisons
+    run several BN rounds at batch 4, where f32 round-off grows past the
+    tolerances on both sides alike, so they run in float64."""
+    flax_model, model, kind, _, classes = _models("resnet56")
+    x = _clients(kind, classes)[0][0][0][:1]
+    start = jax.jit(flax_model.init)(jax.random.key(seed), jnp.asarray(x))
+    return flax_model, model, jax.tree.map(
+        lambda a: np.asarray(a, np.float64), start)
+
+
+def _f64_clients():
+    train, test = _clients("image")
+    return tuple({c: (x.astype(np.float64), y) for c, (x, y) in d.items()}
+                 for d in (train, test))
+
+
+def _f64(state):
+    return {k: v.double() for k, v in state.items()}
+
+
+def test_hierarchical_carries_the_stats_and_matches_jax():
+    from fedml_tpu.algorithms.hierarchical import \
+        HierarchicalConfig as JaxHierarchicalConfig
+    from fedml_tpu.algorithms.hierarchical import \
+        HierarchicalFedAvgAPI as JaxHierarchicalFedAvgAPI
+    from fedml_tpu_torch.algorithms.hierarchical import (
+        HierarchicalConfig, HierarchicalFedAvgAPI)
+    flax_model, model, start = _bn_start()
+    train, test = _f64_clients()
+    cfg = dict(global_comm_round=2, group_num=2, group_comm_round=2,
+               client_num_per_round=3, frequency_of_the_test=1, seed=1)
+    with jax.enable_x64(True), _fast_init(FlaxCifarResNet, start):
+        ref = JaxHierarchicalFedAvgAPI(
+            JaxFederatedDataset.from_client_arrays(train, test, 5),
+            flax_model, config=JaxHierarchicalConfig(
+                train=JaxTrainConfig(**TRAIN), **cfg))
+        ref.train()
+    api = HierarchicalFedAvgAPI(
+        FederatedDataset.from_client_arrays(train, test, 5), model,
+        device="cpu", config=HierarchicalConfig(
+            train=TrainConfig(**TRAIN), **cfg))
+    assert np.array_equal(api.group_indexes, ref.group_indexes)
+    assert len(set(api.group_indexes)) == 2
+    api.variables = _f64(_convert(start, model))
+    begin = {k: v.numpy().copy() for k, v in api.variables.items()}
+    api.train()
+    _assert_close(api.variables, ref.variables, model, begin)
+    for got, want in zip(api.history, ref.history):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       err_msg=k)
+
+
+def test_turboaggregate_carries_the_stats_and_matches_jax():
+    from fedml_tpu.algorithms.turboaggregate import \
+        SecureFedAvgAPI as JaxSecureFedAvgAPI
     from fedml_tpu_torch.algorithms.turboaggregate import SecureFedAvgAPI
-    train, test = _clients("image")
+    flax_model, model, start = _bn_start()
+    train, test = _f64_clients()
+    rounds = dict(comm_round=2, client_num_per_round=2,
+                  frequency_of_the_test=100)
+    with jax.enable_x64(True), _fast_init(FlaxCifarResNet, start):
+        ref = JaxSecureFedAvgAPI(
+            JaxFederatedDataset.from_client_arrays(train, test, 5),
+            flax_model, config=JaxFedAvgConfig(
+                train=JaxTrainConfig(**TRAIN), **rounds))
+        for r in range(2):
+            ref.run_round(r)
     ds = FederatedDataset.from_client_arrays(train, test, 5)
-    cls = dict(hierarchical=HierarchicalFedAvgAPI,
-               turboaggregate=SecureFedAvgAPI,
-               centralized=CentralizedTrainer)[build]
-    with pytest.raises(NotImplementedError, match="item 17a"):
-        cls(ds, CifarResNet([1, 1, 1], 5), device="cpu")
-    cls(ds, ResNetGN([1, 1, 1, 1], 5), device="cpu")  # no collections
+    cfg = FedAvgConfig(train=TrainConfig(**TRAIN), **rounds)
+    api = SecureFedAvgAPI(ds, model, config=cfg, device="cpu")
+    plain = FedAvgAPI(ds, CifarResNet([1, 1, 1], 5), config=cfg,
+                      device="cpu")
+    api.variables = _f64(_convert(start, model))
+    plain.variables = dict(api.variables)
+    begin = {k: v.numpy().copy() for k, v in api.variables.items()}
+    api.run_round(0)
+    plain.run_round(0)
+    # the running statistics survive the field's fixed point: the round's
+    # secure mean lies within its round-off of the plain one
+    for k, v in _stats(plain.variables).items():
+        np.testing.assert_allclose(api.variables[k].numpy(), v.numpy(),
+                                   rtol=0, atol=2.0 ** -15, err_msg=k)
+    api.run_round(1)
+    _assert_close(api.variables, ref.variables, model, begin)
 
 
-def test_leave_one_out_refuses_a_model_with_collections():
-    from fedml_tpu_torch.contribution.loo import LeaveOneOutMeasure
-    train, test = _clients("image")
-    ds = FederatedDataset.from_client_arrays(train, test, 5)
-    loo = LeaveOneOutMeasure(ds, lambda: CifarResNet([1, 1, 1], 5),
-                             config=FedAvgConfig(comm_round=1),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17a"):
-        loo.compute_influence()
+def test_secure_sum_range_is_the_jax_packages():
+    """The field holds sums of ``n_i * v`` below 2**14 at frac_bits 16 (p =
+    2**31 - 1): a BN variance inside it comes back within round-off, one
+    past it wraps, in the port exactly as in the JAX package."""
+    from fedml_tpu.algorithms.turboaggregate import \
+        SecureAggregator as JaxSecureAggregator
+    from fedml_tpu_torch.algorithms.turboaggregate import SecureAggregator
+    weights = np.asarray([80.0, 60.0], np.float32)
+    for var, inside in ((100.0, True), (150.0, False)):  # x 140 samples
+        stacked = np.full((2, 4), var, np.float32)
+        got = SecureAggregator().aggregate(
+            {"running_var": torch.from_numpy(stacked)},
+            torch.from_numpy(weights))["running_var"].numpy()
+        want = np.asarray(JaxSecureAggregator().aggregate(
+            {"running_var": jnp.asarray(stacked)}, weights)["running_var"])
+        assert np.array_equal(got, want)
+        assert np.allclose(got, var, atol=2.0 ** -15) == inside
+
+
+def test_centralized_carries_the_stats_and_matches_jax():
+    from fedml_tpu.algorithms.centralized import \
+        CentralizedTrainer as JaxCentralizedTrainer
+    from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+    flax_model, model, start = _bn_start()
+    train, test = _f64_clients()
+    tc = dict(epochs=1, batch_size=8, lr=0.05, shuffle=False)
+    with jax.enable_x64(True), _fast_init(FlaxCifarResNet, start):
+        ref = JaxCentralizedTrainer(
+            JaxFederatedDataset.from_client_arrays(train, test, 5),
+            flax_model, cfg=JaxTrainConfig(**tc))
+        for _ in range(2):
+            ref.train()
+        want = ref.evaluate()
+    cent = CentralizedTrainer(
+        FederatedDataset.from_client_arrays(train, test, 5), model,
+        cfg=TrainConfig(**tc), device="cpu")
+    cent.trainer.set_model_params(_f64(_convert(start, model)))
+    begin = {k: v.numpy().copy() for k, v in cent.variables.items()}
+    for _ in range(2):
+        cent.train()
+    _assert_close(cent.variables, ref.variables, model, begin)
+    got = cent.evaluate()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+
+
+def test_leave_one_out_on_a_bn_model_matches_jax(monkeypatch):
+    from fedml_tpu.contribution import LeaveOneOutMeasure as JaxLOO
+    from fedml_tpu_torch.contribution import LeaveOneOutMeasure, loo
+    flax_model, _, start = _bn_start()
+    train, test = ({c: d[c] for c in (0, 1)} for d in _f64_clients())
+    rounds = dict(comm_round=1, client_num_per_round=2,
+                  frequency_of_the_test=100)
+    with jax.enable_x64(True), _fast_init(FlaxCifarResNet, start):
+        want = JaxLOO(JaxFederatedDataset.from_client_arrays(train, test, 5),
+                      lambda: flax_model, JaxFedAvgConfig(
+                          train=JaxTrainConfig(**TRAIN), **rounds)
+                      ).compute_influence()
+    sd = _f64(_convert(start, CifarResNet([1, 1, 1], 5)))
+
+    class FromJaxInit(FedAvgAPI):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.variables = {n: t.clone() for n, t in sd.items()}
+    monkeypatch.setattr(loo, "FedAvgAPI", FromJaxInit)
+    got = LeaveOneOutMeasure(
+        FederatedDataset.from_client_arrays(train, test, 5),
+        lambda: CifarResNet([1, 1, 1], 5),
+        FedAvgConfig(train=TrainConfig(**TRAIN), **rounds),
+        device="cpu").compute_influence()
+    assert len(got) == 2 and max(want) > 0
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

@@ -377,3 +377,31 @@ def test_cuda_graph_rounds_equal_host_loop(cuda_device, monkeypatch):
     diff = max(float((host.variables[k] - fused_api.variables[k]).abs().max())
                for k in host.variables)
     assert diff <= 1e-6, diff
+
+
+@pytest.mark.gpu
+def test_efficientnet_fused_block_equals_host_loop(cuda_device,
+                                                   monkeypatch):
+    """EfficientNet-b0 (BN statistics, drop-connect and the head's dropout
+    on, shuffle on) over a captured block and the host loop: the masks come
+    from the counter hash, so the replayed graph draws the host loop's."""
+    from fedml_tpu_torch.data.synthetic import make_image_blob_federated
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    ds = make_image_blob_federated(client_num=4, samples_per_client=10,
+                                   image_size=32, seed=3)
+    cfg = FedAvgConfig(comm_round=2, client_num_per_round=3,
+                       frequency_of_the_test=100, train=TrainConfig(
+                           epochs=1, batch_size=4, lr=0.05))
+    host, fused_api = (FedAvgAPI(ds, create_model("efficientnet-b0",
+                                                  ds.class_num),
+                                 device="cuda", config=cfg)
+                       for _ in range(2))
+    start = {k: v.clone() for k, v in host.variables.items()}
+    for r in range(2):
+        host.run_round(r)
+    fused_api.fused_rounds().run_rounds(0, 2)
+    diff = max(float((host.variables[k] - fused_api.variables[k]).abs().max())
+               for k in host.variables)
+    assert diff <= 1e-6, diff
+    assert not torch.equal(host.variables["blocks.1.bn2.running_var"],
+                           start["blocks.1.bn2.running_var"])

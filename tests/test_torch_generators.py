@@ -1,7 +1,7 @@
 """Byte identity of the port's generated federations with the JAX
 package's, at cut client counts: every client's train and test arrays, in
 dtype and bytes, the global unions and the class count, for the seven
-generators of the cross-device anchors. The JAX builders' disk cache is off
+generators of the cross-device anchors and FedSeg's ``seg_shapes``. The JAX builders' disk cache is off
 (``FEDML_GEN_CACHE=""``), so both sides generate."""
 
 import numpy as np
@@ -45,12 +45,18 @@ def _jax_builders():
         "powerlaw_blob": (js.make_powerlaw_blob_federated,
                           synthetic.make_powerlaw_blob_federated,
                           dict(client_num=120, max_samples=64)),
+        "seg_shapes": (js.make_shapes_segmentation,
+                       synthetic.make_shapes_segmentation,
+                       dict(client_num=3, samples_per_client=6)),
+        "seg_shapes_48": (js.make_shapes_segmentation,
+                          synthetic.make_shapes_segmentation,
+                          dict(client_num=2, image_size=48, seed=5)),
     }
 
 
 CASES = ["fed_cifar100_gen", "stackoverflow_nwp_gen", "shakespeare_gen",
          "mnist_gen", "mnist_gen_noise_free", "img_blob", "img_blob_homo",
-         "synthetic", "powerlaw_blob"]
+         "synthetic", "powerlaw_blob", "seg_shapes", "seg_shapes_48"]
 
 
 def _assert_same_federation(got, want):
@@ -96,3 +102,9 @@ def test_shapes_of_the_anchor_federations():
     cf = flagship_gen.build_fedcifar100_federation(client_num=3)
     assert cf.class_num == 100
     assert cf.train_data_global[0].shape == (240, 24, 24, 3)
+    seg = LOADERS["seg_shapes"]("", client_num_in_total=2)
+    x, y = seg.train_data_global
+    assert seg.class_num == 3 and x.shape == (32, 32, 32, 3)
+    assert y.shape == (32, 32, 32) and set(np.unique(y)) == {0, 1, 2}
+    with pytest.raises(ValueError, match="image_size"):
+        synthetic.make_shapes_segmentation(image_size=12)

@@ -89,6 +89,17 @@ for algo, extra in (("fedopt", ["--fused_rounds", "1"]),
         "--client_num_per_round", "2", "--comm_round", "1",
         "--batch_size", "16", "--device", "cpu", *extra,
         "--run_dir", sys.argv[1] + "/" + algo]))
+# FedSeg on SegNet, and a BN zoo model with drop-connect through a round
+algos["fedseg"] = sorted(fed_launch.main([
+    "--algo", "fedseg", "--dataset", "seg_shapes", "--client_num_in_total",
+    "2", "--client_num_per_round", "2", "--comm_round", "1",
+    "--batch_size", "8", "--device", "cpu", "--run_dir",
+    sys.argv[1] + "/fedseg"]))
+eff = FedAvgAPI(ids, create_model("efficientnet-b0", ids.class_num),
+                device="cpu", config=FedAvgConfig(
+                    comm_round=1, client_num_per_round=2,
+                    train=TrainConfig(batch_size=4, lr=0.1)))
+eff.run_round(0)
 print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
                   "lm_tokens": float(stats["count"]),
                   "silo_rounds": [r["round"] for r in hist],
@@ -110,7 +121,9 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     assert out["silo_rounds"] == [0]
     assert sorted(out["algos"]) == sorted(
         ["fedopt", "fedavg_robust", "fednova", "hierarchical",
-         "turboaggregate", "centralized", "decentralized", "contribution"])
+         "turboaggregate", "centralized", "decentralized", "contribution",
+         "fedseg"])
+    assert "test_mIoU" in out["algos"]["fedseg"]
     assert "regret" in out["algos"]["decentralized"]
     assert "influence" in out["algos"]["contribution"]
     assert out["slice_c"]["bn_stats_moved"]
@@ -125,7 +138,9 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "core.mpc", "core.topology", "data.poisoned",
               "trainer.torch_trainer", "trainer.model_trainer",
               "experiments.fed_launch", "models.resnet", "models.resnet_gn",
-              "models.rnn", "data.leaf", "data.leaf_gen"):
+              "models.rnn", "data.leaf", "data.leaf_gen",
+              "models.mobilenet", "models.mobilenet_v3", "models.vgg",
+              "models.efficientnet", "models.segnet", "algorithms.fedseg"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
     assert not bad, bad
