@@ -151,7 +151,31 @@
    each: one launch a round, finite test mIoU, FWIoU and class accuracy,
    a falling test loss; then one cut round of each zoo model on the card
    and on the CPU from the same weights (TF32 off), params and BN
-   statistics against atol 1e-4 beside the CPU round's own drift.
+   statistics against atol 1e-4 beside the CPU round's own drift;
+23. drives vertical FL (a guest and two hosts on blob, 2 epochs) and split
+   learning (blob, 2 rotations) through ``fed_launch.main``: finite
+   metrics, a falling train loss, no aggregation launch;
+24. drives FedGKT through ``fed_launch.main --algo fedgkt`` on
+   fed_cifar100_gen (10 clients, batch 20) with the full-width resnet8_56
+   client and 18-block resnet56_server, 2 rounds: distillation on in
+   round 1, client weights that differ between clients, finite test
+   accuracy and loss; prints each round's wall and the launch calls of
+   one server and one client train step;
+25. drives FedNAS through ``fed_launch.main --algo fednas`` on the same
+   federation (the search network C 8, 2 cells): 2 rounds of darts and 1
+   of gdas at batch 40, 1 with ``--arch_unrolled`` and
+   ``--nas_retrain_rounds 1`` at batch 80 (one step a client); the
+   aggregation launches equal the rounds (search and retrain: weights, BN
+   statistics and both alphas in one launch a round), the alphas move,
+   the genotype prints; the kernel against its plain version at FedNAS's
+   D = 215,468 (checked against the state dict plus the alphas), timed
+   beside the plain version and torch.mv; the launch calls of a darts
+   search step;
+26. runs one cut round of each of the four (FedNAS under darts, gdas and
+   ``--arch_unrolled``, FedGKT two rounds) on the card and on the CPU
+   from the same weights and
+   orders (TF32 off): params, BN statistics and alphas against atol 1e-4
+   beside the CPU round's own drift. Phases 23-26 print their time.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -277,6 +301,21 @@ SEG_FLAGS = ["--algo", "fedseg", "--dataset", "seg_shapes",
              "--client_num_in_total", "10", "--client_num_per_round", "5",
              "--batch_size", "8", "--epochs", "1", "--lr", "0.1",
              "--device", "cuda"]
+
+
+# FedGKT and FedNAS (phases 24-25) on fed_cifar100_gen: 10 clients of 80
+# 24x24 images, 100 classes, batch 20 (FedGKT) and 40 (FedNAS: 2 search
+# steps a client, each ~22k launch calls; at batch 20, 4 steps took 21-26
+# s a round on the card, past the phases' time); FedNAS's aggregated D is
+# the search
+# network's (C 8, 2 cells) 203,484 params and 11,760 BN statistics plus
+# both alphas' 2 x 14 x 8
+GKT_FLAGS = ["--dataset", "fed_cifar100_gen", "--client_num_in_total", "10",
+             "--batch_size", "20", "--device", "cuda"]
+NAS_FLAGS = ["--dataset", "fed_cifar100_gen", "--client_num_in_total", "10",
+             "--client_num_per_round", "10", "--lr", "0.025", "--device",
+             "cuda"]
+NAS_D = 215_468
 
 
 def log(msg: str) -> None:
@@ -2294,12 +2333,30 @@ def phase_resnet56_path():
     return out
 
 
+def _launch_calls(fn, cpu_ops=True) -> int:
+    """Launch calls (kernels, copies, memsets) of one ``fn()`` on the card,
+    under the profiler, after one warm-up call; ``cpu_ops=False`` traces
+    the CUDA activity alone (the runtime's calls and the kernels), for a
+    call of tens of thousands of launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    acts = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu_ops
+            else [ProfilerActivity.CUDA])
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
+        "cudaMemsetAsync"))
+
+
 def _step_launches(parts):
     """Launch calls of one train step of a path's model (a batch of its
     first client, on the card), under the profiler: a captured round holds
     about that many graph nodes for each of its gated steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from fedml_tpu_torch.trainer.functional import (make_train_step,
                                                     param_names)
     ds, model, task, tc = parts
@@ -2312,20 +2369,9 @@ def _step_launches(parts):
     params = [sd[k] for k in names]
     colls = {k: v for k, v in sd.items() if k not in trained}
     gate = torch.ones((), dtype=torch.bool, device="cuda")
-
-    def one():
-        step(names, params, colls, init(params), x, y, mask,
-             torch.zeros((), dtype=torch.int64, device="cuda"),
-             has_real=gate)
-    one()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        one()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
-        "cudaMemsetAsync"))
+    return _launch_calls(lambda: step(
+        names, params, colls, init(params), x, y, mask,
+        torch.zeros((), dtype=torch.int64, device="cuda"), has_real=gate))
 
 
 def _gated_steps(api, r0):
@@ -2743,6 +2789,356 @@ def phase_zoo_card_vs_cpu():
     return out
 
 
+# -- split learning, vertical FL, FedGKT and FedNAS (phases 23-26) ----------
+
+class _Watch:
+    """Wrap ``cls.run_round`` while a path runs: each call's API, round,
+    whether the API held server logits when it began (FedGKT's
+    distillation switch), and its wall time, synchronized."""
+
+    def __init__(self, cls, flag=None):
+        self.cls, self.flag, self.calls = cls, flag, []
+
+    def __enter__(self):
+        import torch
+        orig = self.orig = self.cls.run_round
+
+        def run_round(api, r, *a, **k):
+            state = getattr(api, self.flag) if self.flag else None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(api, r, *a, **k)
+            torch.cuda.synchronize()
+            self.calls.append({"api": api, "round": r, "flag": state,
+                               "wall_s": time.perf_counter() - t})
+            return out
+        self.cls.run_round = run_round
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run_round = self.orig
+
+
+def _finite(name, rec):
+    for k, v in rec.items():
+        if isinstance(v, float) and not math.isfinite(v):
+            raise AssertionError(f"{name}: {k}={v} in {rec}")
+
+
+def phase_split_vertical_paths():
+    """Vertical FL (a guest and two hosts, 2 epochs) and split learning (2
+    rotations) on blob through ``fed_launch.main``: finite metrics, a
+    falling train loss, no aggregation launch (neither averages)."""
+    from fedml_tpu_torch.experiments import fed_launch
+    out = {}
+    for algo, extra, key in (
+            ("vertical_fl", ["--party_num", "3"], "epoch"),
+            ("split_nn", ["--lr", "0.01"], "rotation")):
+        final, got, _, recs, wall = _launch_run(fed_launch, [
+            "--algo", algo, "--dataset", "blob", "--comm_round", "2",
+            "--device", "cuda", *extra], f"chip_smoke_{algo}")
+        for r in recs:
+            _finite(algo, r)
+        losses = [r["train_loss"] for r in recs if key in r]
+        if got != 0 or len(losses) != 2 or not losses[1] < losses[0]:
+            raise AssertionError(f"{algo}: {got} aggregation launches, "
+                                 f"train loss {losses}")
+        out[algo] = {"launches": got, "train_loss": losses,
+                     "test_acc": final["test_acc"], "wall_s": wall,
+                     "rounds_per_s": 2 / wall}
+        log(f"{algo} through fed_launch on blob: 2 {key}s, train loss "
+            f"{losses[0]:.4f} -> {losses[1]:.4f}, test acc "
+            f"{final['test_acc']:.4f}, {got} aggregation launches (wall "
+            f"{wall:.1f}s with data build)")
+    return out
+
+
+def phase_fedgkt_path():
+    """FedGKT on fed_cifar100_gen (10 clients, batch 20) through
+    ``fed_launch.main --algo fedgkt``, full-width models (resnet8_56 and
+    the 18-block resnet56_server), 2 rounds: distillation on in round 1,
+    client weights that differ between clients, finite test accuracy and
+    loss, no aggregation launch; each round's wall, and the launch calls
+    of one server and one client train step."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedgkt
+    from fedml_tpu_torch.experiments import fed_launch
+    with _Watch(fedgkt.FedGKTAPI, "_have_server_logits") as watch:
+        final, got, _, recs, wall = _launch_run(fed_launch, [
+            "--algo", "fedgkt", *GKT_FLAGS, "--comm_round", "2"],
+            "chip_smoke_fedgkt")
+    api = watch.calls[-1]["api"]
+    kd = [c["flag"] for c in watch.calls]
+    differ = not torch.equal(api.client_vars[0]["stem.weight"],
+                             api.client_vars[1]["stem.weight"])
+    for r in recs:
+        _finite("fedgkt", r)
+    if kd != [False, True] or not differ or got != 0 or not (
+            math.isfinite(final["test_acc"])
+            and math.isfinite(final["test_loss"])):
+        raise AssertionError(f"fedgkt: distillation by round {kd}, client "
+                             f"weights differ {differ}, {got} launches, "
+                             f"final {final}")
+    feats = api._sweep(api.client_module, api.client_vars[0], api._x[0])
+    f, cl = feats[1], feats[0]
+    yy, mm = api._y[0], api._mask[0]
+    idx = torch.arange(api.cfg.batch_size, device="cuda")
+    server_calls = _launch_calls(lambda: api.server_step(f, cl, yy, mm, idx))
+    client_calls = _launch_calls(lambda: api.client_step(0, idx, 1.0))
+    walls = [c["wall_s"] for c in watch.calls]
+    out = {"launches": got, "distill_by_round": kd, "round_wall_s": walls,
+           "rounds_per_s": len(walls) / sum(walls),
+           "server_step_launch_calls": server_calls,
+           "client_step_launch_calls": client_calls,
+           "test_acc": final["test_acc"], "test_loss": final["test_loss"],
+           "wall_s": wall}
+    log(f"fedgkt through fed_launch on fed_cifar100_gen (10 clients, batch "
+        f"20): 2 rounds of " + ", ".join(f"{w:.2f}" for w in walls)
+        + f" s ({out['rounds_per_s']:.3f} rounds/s), distillation by round "
+        f"{kd}, client weights differ, test acc {final['test_acc']:.4f} "
+        f"loss {final['test_loss']:.4f}; launch calls of a server step "
+        f"{server_calls}, of a client step {client_calls}")
+    return out
+
+
+def phase_fednas_path():
+    """FedNAS on fed_cifar100_gen (10 clients of 80 rows) through
+    ``fed_launch.main --algo fednas``: 2 rounds of darts and 1 of gdas at
+    batch 40, 1 with ``--arch_unrolled`` and ``--nas_retrain_rounds 1`` at
+    batch 80 (one step a client: its ~84k launch calls a step make a
+    batch-40 round ~40 s, a third of the phases' time). The aggregation
+    launches equal the rounds (search and retrain); the alphas move; the
+    genotype prints. Then the kernel against its plain version at FedNAS's
+    D (checked against the search network's state dict plus both alphas),
+    timed beside the plain version and torch.mv, and the launch calls of
+    one darts search step (a gdas step's differ by its sampled weights' few
+    dozen; the unrolled step's ~84k took ~20 s to profile, past the
+    phases' time)."""
+    import numpy as np
+    import torch
+    from fedml_tpu_torch.algorithms import fednas
+    from fedml_tpu_torch.experiments import fed_launch
+    from fedml_tpu_torch.models.darts import DartsNetwork
+    out = {}
+    for label, extra, rounds, retrain in (
+            ("darts", ["--comm_round", "2", "--batch_size", "40"], 2, 0),
+            ("gdas", ["--comm_round", "1", "--batch_size", "40",
+                      "--nas_variant", "gdas"], 1, 0),
+            ("unrolled", ["--comm_round", "1", "--batch_size", "80",
+                          "--arch_unrolled", "--nas_retrain_rounds", "1"],
+             1, 1)):
+        start = {}
+        orig_init = fednas.FedNASAPI.__init__
+
+        def init(api, *a, **k):
+            orig_init(api, *a, **k)
+            start.update({k: v.clone() for k, v in api.alphas.items()})
+        fednas.FedNASAPI.__init__ = init
+        try:
+            with _Watch(fednas.FedNASAPI) as watch:
+                final, got, _, recs, wall = _launch_run(fed_launch, [
+                    "--algo", "fednas", *NAS_FLAGS, *extra],
+                    f"chip_smoke_fednas_{label}")
+        finally:
+            fednas.FedNASAPI.__init__ = orig_init
+        api = watch.calls[-1]["api"]
+        moved = max(float((api.alphas[k] - v).abs().max())
+                    for k, v in start.items())
+        for r in recs:
+            _finite(f"fednas {label}", r)
+        if got != rounds + retrain or not moved > 0 or not \
+                final["genotype"].startswith("Genotype(") or \
+                not math.isfinite(final["test_acc"]) or (
+                    retrain and not math.isfinite(
+                        final["retrain_test_loss"])):
+            raise AssertionError(f"fednas {label}: {got} aggregation "
+                                 f"launches in {rounds} search + {retrain} "
+                                 f"retrain rounds, alphas moved {moved}, "
+                                 f"final {final}")
+        walls = [c["wall_s"] for c in watch.calls]
+        out[label] = {"launches": got, "alphas_moved": moved,
+                      "round_wall_s": walls,
+                      "rounds_per_s": len(walls) / sum(walls),
+                      "genotype": final["genotype"],
+                      "test_acc": final["test_acc"], "wall_s": wall}
+        log(f"fednas {label} through fed_launch: {rounds} search round(s) "
+            + ", ".join(f"{w:.2f}" for w in walls)
+            + f" s ({out[label]['rounds_per_s']:.3f} rounds/s)"
+            + (" + 1 retrain round" if retrain else "")
+            + f", {got} aggregation launches, alphas moved by {moved:.3g}, "
+            f"test acc {final['test_acc']:.4f}; genotype "
+            f"{final['genotype']}")
+        if label != "darts":
+            continue
+        # one search step on the card, its launch calls
+        x, y, mask = (torch.as_tensor(a[0, :40], device="cuda") for a in
+                      api.ds.pack_clients([0], 40))
+        y, mask = y.long(), mask.float()
+        names = [k for k in api.variables if k in api._trained]
+        params = [api.variables[k] for k in names]
+        colls = {k: v for k, v in api.variables.items()
+                 if k not in api._trained}
+        alphas = [api.alphas["normal"], api.alphas["reduce"]]
+        u = (torch.rand((2,) + tuple(alphas[0].shape), device="cuda")
+             .clamp_(min=1e-20))
+        out[label]["search_step_launch_calls"] = _launch_calls(
+            lambda: api.search_step(
+                names, params, colls, alphas, api._opt_w.init(params),
+                api._opt_a.init(alphas), (x, y, mask), (x, y, mask),
+                u, u, 1.0), cpu_ops=False)
+        log(f"fednas {label}: {out[label]['search_step_launch_calls']} "
+            "launch calls a search step")
+    with torch.device("meta"):
+        sd = DartsNetwork(C=8, num_classes=100, layers=2).state_dict()
+    d = sum(v.numel() for v in sd.values()) + 2 * int(np.prod(
+        api.alphas["normal"].shape))
+    if d != NAS_D:
+        raise AssertionError(f"fednas: D {d} != {NAS_D}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    out["kernel"] = _wmean_timed(HEADLINE[0], NAS_D, gen, 16, 400)
+    log(f"fednas: the aggregation kernel at FedNAS's D = {NAS_D} "
+        f"(203,484 params + 11,760 BN statistics + 224 alphas)")
+    return out
+
+
+def _slice_f_cut_cases():
+    """name -> run(device, perturb) -> {name: tensor} of one cut round of
+    each algorithm from the same weights and orders on ``device``;
+    ``perturb`` scales the CPU's float params by (1 + 1e-7 noise)."""
+    import numpy as np
+    import torch
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI, FedGKTConfig
+    from fedml_tpu_torch.algorithms.fednas import FedNASAPI, FedNASConfig
+    from fedml_tpu_torch.algorithms.split_nn import SplitNNAPI, SplitNNConfig
+    from fedml_tpu_torch.algorithms.vertical_fl import VFLConfig, build_vfl
+    from fedml_tpu_torch.data.synthetic import (make_blob_federated,
+                                                make_image_blob_federated)
+    from fedml_tpu_torch.models.darts import DartsNetwork
+    from fedml_tpu_torch.models.resnet_gkt import (ResNetClientGKT,
+                                                   ResNetServerGKT)
+    from fedml_tpu_torch.models.vfl import VFLDenseModel, VFLFeatureExtractor
+
+    blob = make_blob_federated(client_num=3, seed=2, n_samples=300)
+    img = make_image_blob_federated(client_num=3, samples_per_client=8,
+                                    image_size=8, seed=3)
+    gen = torch.Generator().manual_seed(26)
+
+    def noisy(sd, perturb):
+        return {k: v * (1 + 1e-7 * torch.randn(
+            v.shape, generator=gen, dtype=v.dtype).to(v.device))
+                if perturb and v.is_floating_point() and
+                "running_" not in k else v for k, v in sd.items()}
+
+    def vfl(dev, perturb):
+        xg, yg = blob.train_data_global
+        x = np.asarray(xg, np.float32)
+        y = (np.asarray(yg) % 2).astype(np.float32)
+        cuts = np.array_split(np.arange(x.shape[1]), 3)
+        fx = build_vfl([len(c) for c in cuts], VFLConfig(
+            epochs=1, batch_size=32, lr=0.05), device=dev)
+        parties = [fx.fl.guest, *fx.fl.hosts]
+        for p in parties:
+            for m in (p.local, p.dense):
+                m.load_state_dict(noisy(m.state_dict(), perturb))
+        fx.fit([x[:, c] for c in cuts], y, [x[:16, c] for c in cuts],
+               y[:16])
+        return {f"{i}.{n}.{k}": v for i, p in enumerate(parties)
+                for n, m in (("local", p.local), ("dense", p.dense))
+                for k, v in m.state_dict().items()}
+
+    def split(dev, perturb):
+        api = SplitNNAPI(blob, VFLFeatureExtractor(20, (64, 32)),
+                         VFLDenseModel(32, blob.class_num),
+                         config=SplitNNConfig(batch_size=16, lr=0.01),
+                         device=dev)
+        api.bottom_params = [noisy(p, perturb) for p in api.bottom_params]
+        api.top_params = noisy(api.top_params, perturb)
+        api.train_one_rotation(0)
+        return {**{f"bottom{c}.{k}": v for c, p in
+                   enumerate(api.bottom_params) for k, v in p.items()},
+                **{f"top.{k}": v for k, v in api.top_params.items()}}
+
+    def gkt(dev, perturb):
+        api = FedGKTAPI(img, ResNetClientGKT(1, img.class_num),
+                        ResNetServerGKT((1, 1), img.class_num),
+                        FedGKTConfig(batch_size=4), device=dev)
+        api.client_vars = [noisy(v, perturb) for v in api.client_vars]
+        api.server_vars = noisy(api.server_vars, perturb)
+        for r in range(2):  # the second round distills
+            api.run_round(r)
+        return {**{f"client{c}.{k}": v for c, p in
+                   enumerate(api.client_vars) for k, v in p.items()},
+                **{f"server.{k}": v for k, v in api.server_vars.items()}}
+
+    def nas(**kw):
+        """FedNAS's round under ``kw``: darts, gdas (the straight-through
+        sample from the same CPU-drawn uniforms) or ``arch_unrolled`` (the
+        double backward through the virtual step); one node a cell, which
+        still runs every primitive in a normal and two reduction cells."""
+        def run(dev, perturb):
+            api = FedNASAPI(img, DartsNetwork(C=4, num_classes=img.class_num,
+                                              layers=3, steps=1,
+                                              multiplier=1),
+                            FedNASConfig(batch_size=4, lr=0.01, **kw),
+                            device=dev)
+            api.variables = noisy(api.variables, perturb)
+            api.run_round(0)
+            return {**api.variables,
+                    **{f"alphas.{k}": v for k, v in api.alphas.items()}}
+        return run
+
+    return {"vertical_fl": vfl, "split_nn": split, "fedgkt": gkt,
+            "fednas": nas(), "fednas_gdas": nas(variant="gdas"),
+            "fednas_unrolled": nas(arch_unrolled=True)}
+
+
+def phase_slice_f_card_vs_cpu():
+    """One cut round of each of the four algorithms (FedNAS under darts,
+    gdas and ``arch_unrolled``; FedGKT two rounds, the second distilling)
+    on the card and on
+    the CPU from the same weights and orders (TF32 off): params, BN
+    statistics and alphas against ANCHOR_CPU_ATOL, beside the CPU round's
+    own drift from a 1e-7 relative perturbation of its params."""
+    import torch
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, run in _slice_f_cut_cases().items():
+            t0 = time.perf_counter()
+            card, cpu = run("cuda", False), run("cpu", False)
+            stats = {k for k in cpu if "running_" in k}
+            out[name] = {
+                "params": _max_diff({k: v for k, v in card.items()
+                                     if k not in stats},
+                                    {k: v for k, v in cpu.items()
+                                     if k not in stats}),
+                "stats": (_max_diff({k: card[k] for k in sorted(stats)},
+                                    {k: cpu[k] for k in sorted(stats)})
+                          if stats else None),
+                "cpu_drift_1e-7": _max_diff(cpu, run("cpu", True))}
+            out[name]["wall_s"] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    bad = {k: v for k, v in out.items()
+           if not all(v[f] is None or v[f] <= ANCHOR_CPU_ATOL
+                      for f in ("params", "stats"))}
+    if bad:
+        raise AssertionError(f"slice F rounds card vs CPU: {bad}")
+    log("one cut round of each slice-F algorithm, card vs CPU (TF32 off), "
+        "max abs diff of params and alphas / BN statistics (the CPU "
+        "round's drift from a 1e-7 perturbation): " + ", ".join(
+            f"{k} {v['params']:.3g} / "
+            + ("-" if v["stats"] is None else f"{v['stats']:.3g}")
+            + f" ({v['cpu_drift_1e-7']:.3g}; {v['wall_s']:.1f} s)"
+            for k, v in out.items()) + f" (atol {ANCHOR_CPU_ATOL})")
+    return out
+
+
 def _build_each_federation_once() -> None:
     """Each generated federation is built once in a run and handed to every
     later entry-point call with the same arguments: the builders are pure
@@ -2790,6 +3186,13 @@ def main() -> None:
     record["zoo_models"] = phase_zoo_models()
     record["fedseg_path"] = phase_fedseg_path()
     record["zoo_card_vs_cpu"] = phase_zoo_card_vs_cpu()
+    t_slice_f = time.perf_counter()
+    record["split_vertical_paths"] = phase_split_vertical_paths()
+    record["fedgkt_path"] = phase_fedgkt_path()
+    record["fednas_path"] = phase_fednas_path()
+    record["slice_f_card_vs_cpu"] = phase_slice_f_card_vs_cpu()
+    record["slice_f_s"] = time.perf_counter() - t_slice_f
+    log(f"phases 23-26 took {record['slice_f_s']:.1f} s")
     k = record["kernel"]
     zoo = record["zoo_models"]
     kernels = [{
@@ -2821,10 +3224,17 @@ def main() -> None:
                for a in ("hierarchical", "turboaggregate")},
             **{f"fedseg_{loss}": record["fedseg_path"][loss]["launches"]
                for loss in ("ce", "focal")}},
+        "launches_slice_f": {
+            **{a: record["split_vertical_paths"][a]["launches"]
+               for a in ("vertical_fl", "split_nn")},
+            "fedgkt": record["fedgkt_path"]["launches"],
+            **{f"fednas_{v}": record["fednas_path"][v]["launches"]
+               for v in ("darts", "gdas", "unrolled")}},
         "at_anchor_d": {m: {f: v[f] for f in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "library_ms")} for m, v in {**record["anchor_kernel"],
-                                        **record["zoo_kernel"]}.items()},
+            "library_ms")} for m, v in {
+                **record["anchor_kernel"], **record["zoo_kernel"],
+                "fednas": record["fednas_path"]["kernel"]}.items()},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]

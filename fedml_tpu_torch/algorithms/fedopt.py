@@ -28,20 +28,9 @@ import torch
 from fedml_tpu_torch.algorithms.fedavg import (FedAvgAPI, FedAvgConfig,
                                                FusedRounds)
 from fedml_tpu_torch.data.base import FederatedDataset
-from fedml_tpu_torch.trainer.functional import Optimizer, _sgd
-
-
-def _moment(grads, moment, decay: float, order: int):
-    """optax's ``update_moment``: ``(1 - decay) * g**order + decay * t``."""
-    g = grads if order == 1 else torch._foreach_mul(grads, grads)
-    return torch._foreach_add(torch._foreach_mul(g, 1 - decay),
-                              torch._foreach_mul(moment, decay))
-
-
-def _bias_correction(moment, decay: float, count: torch.Tensor):
-    """``t / (1 - decay**count)``, the power in float32 as optax takes it."""
-    return torch._foreach_div(
-        moment, 1 - torch.pow(decay, count.to(torch.float32)))
+from fedml_tpu_torch.trainer.functional import (Optimizer, _sgd,
+                                                bias_correction,
+                                                update_moment)
 
 
 def _full_like(params, value: float):
@@ -63,9 +52,9 @@ def _scaled(updates, lr: float):
 def _adam_direction(mu, nu, count, eps: float):
     """``mu_hat / (sqrt(nu_hat) + eps)`` (optax's ``eps_root`` is 0)."""
     return torch._foreach_div(
-        _bias_correction(mu, 0.9, count),
+        bias_correction(mu, 0.9, count),
         torch._foreach_add(torch._foreach_sqrt(
-            _bias_correction(nu, 0.999, count)), eps))
+            bias_correction(nu, 0.999, count)), eps))
 
 
 def _adam(lr: float, eps: float = 1e-8, weight_decay: float = 0.0,
@@ -76,8 +65,8 @@ def _adam(lr: float, eps: float = 1e-8, weight_decay: float = 0.0,
     either norm is 0."""
 
     def update(grads, state, params, emit=None, acc_div=None):
-        mu = _moment(grads, state["mu"], 0.9, 1)
-        nu = _moment(grads, state["nu"], 0.999, 2)
+        mu = update_moment(grads, state["mu"], 0.9, 1)
+        nu = update_moment(grads, state["nu"], 0.999, 2)
         count = state["count"] + 1
         u = _adam_direction(mu, nu, count, eps)
         if weight_decay:
@@ -100,7 +89,7 @@ def _yogi(lr: float, eps: float = 1e-3, b2: float = 0.999) -> Optimizer:
     of ``nu - g**2``: ``nu - (1 - b2) * sign(nu - g**2) * g**2``."""
 
     def update(grads, state, params, emit=None, acc_div=None):
-        mu = _moment(grads, state["mu"], 0.9, 1)
+        mu = update_moment(grads, state["mu"], 0.9, 1)
         g2 = torch._foreach_mul(grads, grads)
         nu = [v - (1 - b2) * torch.sign(v - s) * s
               for v, s in zip(state["nu"], g2)]
@@ -135,7 +124,7 @@ def _rmsprop(lr: float, decay: float = 0.9, eps: float = 1e-8) -> Optimizer:
     update ``g * rsqrt(nu + eps)`` (``eps`` inside the square root)."""
 
     def update(grads, state, params, emit=None, acc_div=None):
-        nu = _moment(grads, state["nu"], decay, 2)
+        nu = update_moment(grads, state["nu"], decay, 2)
         u = torch._foreach_mul(torch._foreach_rsqrt(
             torch._foreach_add(nu, eps)), grads)
         return _scaled(u, lr), {"nu": nu}

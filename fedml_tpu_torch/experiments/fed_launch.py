@@ -9,11 +9,16 @@ that dispatches any algorithm, fedml_experiments/distributed/fed_launch/).
 Each algorithm adds its flags to the shared federated set. The port runs
 fedavg (the simulation and cross-silo runners of ``main_fedavg``),
 fedavg_cross_silo, fedopt, fednova, fedavg_robust, hierarchical,
-turboaggregate, centralized, decentralized, contribution and fedseg
-(``--dataset seg_shapes``, ``--seg_loss ce|focal``) on ``--device``
-(default ``cuda``; without a GPU and without ``--device cpu`` it raises).
-The other algorithms of ``ALGOS`` raise ``NotImplementedError`` naming
-their ROADMAP item, before any data is built.
+turboaggregate, centralized, decentralized, contribution, fedseg
+(``--dataset seg_shapes``, ``--seg_loss ce|focal``), split_nn and
+vertical_fl (flat features, e.g. ``--dataset blob``; ``--party_num``),
+fedgkt (``--epochs_client``, ``--epochs_server``, ``--alpha``,
+``--temperature``, ``--pretrained_path``) and fednas (``--nas_variant
+darts|gdas``, ``--arch_unrolled``, ``--arch_lr``,
+``--nas_retrain_rounds``) on NHWC images, on ``--device`` (default
+``cuda``; without a GPU and without ``--device cpu`` it raises).
+fedavg_async raises ``NotImplementedError`` naming its ROADMAP item, before
+any data is built.
 """
 
 from __future__ import annotations
@@ -44,13 +49,12 @@ ALGOS = ["fedavg", "fedavg_cross_silo", "fedopt", "fednova",
          "contribution", "fedavg_async"]
 
 #: algorithms the port does not run yet -> their ROADMAP Queue 1 item
-NOT_PORTED = {"fednas": "item 27", "fedgkt": "item 27",
-              "split_nn": "item 27", "vertical_fl": "item 27",
-              "fedavg_async": "Slice D item 22e"}
+NOT_PORTED = {"fedavg_async": "Slice D item 22e"}
 
 # algorithms whose inner loop does not take TrainConfig's optimizer
 # factory: flags like --accum_steps do not reach them
-_CUSTOM_LOOP_ALGOS = {"fednova", "decentralized"}
+_CUSTOM_LOOP_ALGOS = {"fednova", "decentralized", "split_nn", "vertical_fl",
+                      "fednas", "fedgkt"}
 
 
 def add_algo_args(parser: argparse.ArgumentParser):
@@ -91,13 +95,33 @@ def add_algo_args(parser: argparse.ArgumentParser):
     # hierarchical (group_num = edge servers)
     parser.add_argument("--group_num", type=int, default=2)
     parser.add_argument("--group_comm_round", type=int, default=2)
+    # fedgkt (main_fedgkt.py)
+    parser.add_argument("--epochs_client", type=int, default=1)
+    parser.add_argument("--epochs_server", type=int, default=1)
+    parser.add_argument("--pretrained_path", type=str, default=None,
+                        help="torch .pth mirroring the GKT client model; "
+                             "warm-starts every client feature extractor")
+    parser.add_argument("--alpha", type=float, default=1.0)
+    parser.add_argument("--temperature", type=float, default=1.0)
     # decentralized online (main_decentralized_fl args)
     parser.add_argument("--mode", type=str, default="DOL",
                         choices=["DOL", "PUSHSUM"])
     parser.add_argument("--topology_neighbors_num_undirected", type=int,
                         default=4)
+    # fednas (main_fednas: --arch_learning_rate; --nas_variant gdas =
+    # gumbel-softmax single-path search; --arch_unrolled = 2nd order)
+    parser.add_argument("--arch_lr", type=float, default=3e-4)
+    parser.add_argument("--nas_variant", type=str, default="darts",
+                        choices=["darts", "gdas"])
+    parser.add_argument("--arch_unrolled", action="store_true")
+    parser.add_argument("--nas_retrain_rounds", type=int, default=0,
+                        help="after the search, FedAvg-train the derived "
+                             "genotype network for N rounds (reference "
+                             "search->train workflow)")
     # turboaggregate
     parser.add_argument("--frac_bits", type=int, default=16)
+    # vertical_fl (guest = party 0 with labels + first feature block)
+    parser.add_argument("--party_num", type=int, default=3)
     # fedseg (reference SegmentationLosses)
     parser.add_argument("--seg_loss", type=str, default="ce",
                         choices=["ce", "focal"])
@@ -156,8 +180,27 @@ def _refuse_unported(args) -> None:
                              "a message a round")
 
 
+def _validate_before_sink(args, ds) -> None:
+    """Shape and flag checks that refuse before a metrics run is opened."""
+    x = ds.train_data_global[0]
+    if args.algo in ("split_nn", "vertical_fl") and x.ndim != 2:
+        raise SystemExit(
+            f"{args.algo}'s generic wiring needs flat features (e.g. "
+            f"--dataset blob); {args.dataset!r} samples have shape "
+            f"{x.shape[1:]}")
+    if args.algo == "vertical_fl" and not 0 < args.party_num <= x.shape[1]:
+        raise SystemExit(
+            f"--party_num {args.party_num} must be in [1, {x.shape[1]}] "
+            f"(the feature dimension of {args.dataset!r})")
+    if args.algo in ("fedgkt", "fednas") and x.ndim != 4:
+        raise SystemExit(
+            f"{args.algo} needs an NHWC image dataset (e.g. --dataset "
+            f"img_blob); {args.dataset!r} samples have shape {x.shape[1:]}")
+
+
 def run_algo(args):
     ds, model, task = build_dataset_and_model(args)
+    _validate_before_sink(args, ds)
     sink = MetricsSink(args.run_dir, config=vars(args),
                        use_wandb=args.use_wandb)
     try:
@@ -232,6 +275,29 @@ def _dispatch(args, ds, model, task, sink):
                         loss_mode=args.seg_loss, device=dev)
     elif args.algo == "decentralized":
         return _run_decentralized(args, ds, sink)
+    elif args.algo == "split_nn":
+        return _run_split_nn(args, ds, sink)
+    elif args.algo == "vertical_fl":
+        return _run_vertical_fl(args, ds, sink)
+    elif args.algo == "fednas":
+        return _run_fednas(args, ds, sink, tcfg)
+    elif args.algo == "fedgkt":
+        from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI, FedGKTConfig
+        from fedml_tpu_torch.models.resnet_gkt import (resnet8_56,
+                                                       resnet56_server)
+        # the JAX launcher passes no --lr: both optimizers keep lr 0.01
+        api = FedGKTAPI(ds, resnet8_56(ds.class_num),
+                        resnet56_server(ds.class_num),
+                        FedGKTConfig(comm_round=args.comm_round,
+                                     epochs_client=args.epochs_client,
+                                     epochs_server=args.epochs_server,
+                                     batch_size=args.batch_size,
+                                     alpha=args.alpha,
+                                     temperature=args.temperature,
+                                     seed=args.seed,
+                                     pretrained_client_path=(
+                                         args.pretrained_path)),
+                        device=dev)
     elif args.algo == "centralized":
         from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
         trainer = CentralizedTrainer(ds, model, task=task, cfg=tcfg,
@@ -315,6 +381,89 @@ def _run_decentralized(args, ds, sink):
     sink.log(rec)
     logging.info("final: %s", rec)
     return rec
+
+
+def _run_split_nn(args, ds, sink):
+    from fedml_tpu_torch.algorithms.split_nn import SplitNNAPI, SplitNNConfig
+    from fedml_tpu_torch.models.vfl import VFLDenseModel, VFLFeatureExtractor
+    # the JAX launcher's cut: a (64, 32) dense bottom, a dense top
+    bottom = VFLFeatureExtractor(ds.train_data_global[0].shape[1], (64, 32))
+    top = VFLDenseModel(bottom.output_dim, ds.class_num, use_bias=True)
+    api = SplitNNAPI(ds, bottom, top, config=SplitNNConfig(
+        epochs_per_node=args.epochs, batch_size=args.batch_size, lr=args.lr,
+        wd=args.wd, seed=args.seed), device=args.device)
+    for r in range(args.comm_round):
+        sink.log(api.train_one_rotation(r), step=r)
+    logging.info("final: %s", api.history[-1])
+    return api.history[-1]
+
+
+def _run_vertical_fl(args, ds, sink):
+    from fedml_tpu_torch.algorithms.vertical_fl import VFLConfig, build_vfl
+    xg, yg = ds.train_data_global
+    xt, yt = ds.test_data_global
+    x_train = np.asarray(xg, np.float32)
+    x_test = np.asarray(xt, np.float32)
+    # the guest holds the labels (made binary: the reference VFL task is
+    # binary logistic regression, party_models.py) and the first feature
+    # block; the hosts hold the rest
+    y_train = (np.asarray(yg).reshape(-1) % 2).astype(np.float32)
+    y_test = (np.asarray(yt).reshape(-1) % 2).astype(np.float32)
+    cuts = np.array_split(np.arange(x_train.shape[1]), args.party_num)
+    fixture = build_vfl([len(c) for c in cuts],
+                        VFLConfig(epochs=args.comm_round,
+                                  batch_size=args.batch_size, lr=args.lr,
+                                  seed=args.seed), device=args.device)
+    final = fixture.fit([x_train[:, c] for c in cuts], y_train,
+                        [x_test[:, c] for c in cuts], y_test)
+    for rec in fixture.history:
+        sink.log(rec, step=rec["epoch"])
+    logging.info("final: %s", final)
+    return final
+
+
+def _run_fednas(args, ds, sink, tcfg):
+    from fedml_tpu_torch.algorithms.fednas import FedNASAPI, FedNASConfig
+    from fedml_tpu_torch.models.darts import DartsNetwork
+    api = FedNASAPI(ds, DartsNetwork(C=8, num_classes=ds.class_num,
+                                     layers=2),
+                    FedNASConfig(comm_round=args.comm_round,
+                                 epochs=args.epochs,
+                                 batch_size=args.batch_size, lr=args.lr,
+                                 arch_lr=args.arch_lr, seed=args.seed,
+                                 variant=args.nas_variant,
+                                 arch_unrolled=args.arch_unrolled),
+                    device=args.device)
+    for r in range(args.comm_round):
+        rec = api.run_round(r)
+        sink.log({k: v for k, v in rec.items() if k != "genotype"}, step=r)
+        logging.info("round %d: search_loss=%.4f", r, rec["search_loss"])
+    final = {**api.evaluate(), "genotype": str(api.history[-1]["genotype"])}
+    if args.nas_retrain_rounds > 0:
+        # the second half of the NAS workflow (reference model.py /
+        # train.py): the searched genotype as a fixed network, trained
+        # federated from scratch through FedAvg
+        from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+        from fedml_tpu_torch.models.darts_eval import GenotypeNetwork
+        eval_net = GenotypeNetwork(api.genotype(), C=8,
+                                   num_classes=ds.class_num, layers=3,
+                                   stem_multiplier=1)
+        retrain = FedAvgAPI(ds, eval_net, device=args.device,
+                            config=FedAvgConfig(
+                                comm_round=args.nas_retrain_rounds,
+                                client_num_per_round=(
+                                    args.client_num_per_round),
+                                frequency_of_the_test=(
+                                    args.frequency_of_the_test),
+                                seed=args.seed, train=tcfg))
+        retrain_final = retrain.train()
+        for rec in retrain.history:
+            sink.log({f"retrain_{k}": v for k, v in rec.items()},
+                     step=rec.get("round"))
+        final.update({f"retrain_{k}": v for k, v in retrain_final.items()})
+    sink.log({k: v for k, v in final.items() if k != "genotype"})
+    logging.info("final: %s", final)
+    return final
 
 
 def _run_contribution(args, ds, model, task, sink, common):

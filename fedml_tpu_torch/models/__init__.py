@@ -70,8 +70,13 @@ def create_model(model_name: str, output_dim: int = 10,
     if model_name == "segnet":
         from fedml_tpu_torch.models.segnet import SegNet
         return SegNet(num_classes=output_dim, **kw)
-    if model_name in ("resnet8_gkt", "resnet56_gkt_server", "darts"):
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported yet: ROADMAP Queue 1, item "
-            "27 (it comes with FedGKT and FedNAS)")
+    if model_name == "resnet8_gkt":
+        from fedml_tpu_torch.models.resnet_gkt import resnet8_56
+        return resnet8_56(num_classes=output_dim)
+    if model_name == "resnet56_gkt_server":
+        from fedml_tpu_torch.models.resnet_gkt import resnet56_server
+        return resnet56_server(num_classes=output_dim)
+    if model_name == "darts":
+        from fedml_tpu_torch.models.darts import DartsNetwork
+        return DartsNetwork(num_classes=output_dim, **kw)
     raise ValueError(f"unknown model: {model_name!r}")

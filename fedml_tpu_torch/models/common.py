@@ -52,8 +52,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.embedding_dim),
                             generator=generator)
         elif isinstance(m, (nn.GroupNorm, BatchNorm)):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.weight is not None:  # an affine-free BatchNorm has none
+                m.weight.fill_(1.0)
+                m.bias.zero_()
             if isinstance(m, BatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
@@ -99,14 +100,22 @@ class BatchNorm(nn.Module):
     :func:`collect_batch_stats` sink, and the trainer selects them like the
     params; train mode outside a sink raises rather than drop them. Eval
     mode normalizes with the running statistics. No ``num_batches_tracked``
-    counter: every buffer is an f32 leaf the aggregation averages."""
+    counter: every buffer is an f32 leaf the aggregation averages.
+
+    ``affine=False`` is flax's ``use_scale=False, use_bias=False`` (the
+    DARTS search cells' norm): no parameters at all, so the state dict
+    holds the running statistics alone, as flax's variables do."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, affine: bool = True):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
@@ -129,6 +138,8 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         shape = (1, -1) + (1,) * (x.dim() - 2)
         y = x - mean.view(shape)
+        if self.weight is None:
+            return (y * torch.rsqrt(var + self.eps).view(shape)).to(x.dtype)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = y * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)

@@ -16,7 +16,7 @@ pad 1 on both sides, as flax's do.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -58,6 +58,17 @@ class BottleneckBlock(nn.Module):
         return F.relu(out + identity)
 
 
+def block_flax_names(top, blocks) -> Dict[str, str]:
+    """A model's ``flax_names``: ``top`` and each ``blocks.i`` bottleneck's
+    under ``BottleneckBlock_i`` (its shortcut's only where it has one)."""
+    names = dict(top)
+    for i, blk in enumerate(blocks):
+        for t, f in blk.flax_names.items():
+            if getattr(blk, t, None) is not None:
+                names[f"blocks.{i}.{t}"] = f"BottleneckBlock_{i}/{f}"
+    return names
+
+
 class CifarResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 10,
                  kd: bool = False):
@@ -74,13 +85,9 @@ class CifarResNet(nn.Module):
                 in_planes = planes * BottleneckBlock.expansion
         self.blocks = nn.ModuleList(blocks)
         self.fc = nn.Linear(in_planes, num_classes)
-        self.flax_names = {"stem": "Conv_0", "stem_bn": "BatchNorm_0",
-                           "fc": "Dense_0"}
-        for i, blk in enumerate(blocks):
-            for t, f in blk.flax_names.items():
-                if getattr(blk, t, None) is not None:
-                    self.flax_names[f"blocks.{i}.{t}"] = \
-                        f"BottleneckBlock_{i}/{f}"
+        self.flax_names = block_flax_names(
+            {"stem": "Conv_0", "stem_bn": "BatchNorm_0", "fc": "Dense_0"},
+            blocks)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None):

@@ -166,38 +166,76 @@ def _sgd(lr: float, momentum: float) -> Optimizer:
     return Optimizer(init, update)
 
 
-def _amsgrad(lr: float, wd: float, b1: float = 0.9, b2: float = 0.999,
-             eps: float = 1e-8) -> Optimizer:
-    """``optax.chain(add_decayed_weights(wd), amsgrad(lr))`` (optax 0.2.6
-    ``scale_by_amsgrad``): ``g + wd * p``; ``mu = (1-b1) g + b1 mu``, ``nu =
-    (1-b2) g^2 + b2 nu``; ``count += 1``; both moments divided by ``1 -
-    b**count`` (float32); ``nu_max = max(nu_max, nu_hat)``; ``-lr * mu_hat /
-    (sqrt(nu_max) + eps)``. The max is of the bias-corrected moment, which
-    ``torch.optim.Adam(amsgrad=True)`` takes before the correction."""
-
-    def init(params):
-        zeros = [[torch.zeros_like(p) for p in params] for _ in range(3)]
-        return {"mu": zeros[0], "nu": zeros[1], "nu_max": zeros[2],
-                "count": torch.zeros((), dtype=torch.int32,
-                                     device=params[0].device)}
+def decayed_sgd(lr: float, momentum: float = 0.0,
+                wd: float = 0.0) -> Optimizer:
+    """``optax.chain(add_decayed_weights(wd), sgd(lr, momentum))``: ``g + wd
+    * p`` into :func:`_sgd`. The optimizer of the algorithms that keep the
+    reference's weight decay (split learning, FedNAS) or their own momentum
+    (FedGKT), outside :class:`TrainConfig`."""
+    inner = _sgd(lr, momentum)
 
     def update(grads, state, params, emit=None, acc_div=None):
         if wd:
             grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
-        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                                torch._foreach_mul(state["mu"], b1))
-        nu = torch._foreach_add(
-            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-            torch._foreach_mul(state["nu"], b2))
+        return inner.update(grads, state, params)
+
+    return Optimizer(inner.init, update)
+
+
+def update_moment(grads, moment, decay: float, order: int):
+    """optax's ``update_moment``: ``(1 - decay) * g**order + decay * t``."""
+    g = grads if order == 1 else torch._foreach_mul(grads, grads)
+    return torch._foreach_add(torch._foreach_mul(g, 1 - decay),
+                              torch._foreach_mul(moment, decay))
+
+
+def bias_correction(moment, decay: float, count: torch.Tensor):
+    """``t / (1 - decay**count)``, the power in the width optax takes it in:
+    float32, or float64 for float64 moments (JAX's x64 mode). At float32, 1
+    - 0.999 is 1.3e-5 away from its float64 value."""
+    wide = moment[0].dtype == torch.float64
+    steps = count.to(torch.float64 if wide else torch.float32)
+    return torch._foreach_div(moment, 1 - torch.pow(decay, steps))
+
+
+def decayed_adam(lr: float, wd: float = 0.0, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 amsgrad: bool = False) -> Optimizer:
+    """``optax.chain(add_decayed_weights(wd), adam(lr, b1, b2, eps))``, or
+    with ``amsgrad`` optax 0.2.6's ``amsgrad``: ``g + wd * p``; ``mu =
+    (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``; ``count += 1``; both
+    moments divided by ``1 - b**count``; under ``amsgrad`` ``nu_max =
+    max(nu_max, nu_hat)`` stands for ``nu_hat``; ``-lr * mu_hat /
+    (sqrt(nu_hat) + eps)``. The max is of the bias-corrected moment, which
+    ``torch.optim.Adam(amsgrad=True)`` takes before the correction. The
+    clients' Adam (:func:`make_optimizer`) is the amsgrad form; FedNAS's
+    alphas take the plain one with ``b1 = 0.5``."""
+
+    def init(params):
+        n = 3 if amsgrad else 2
+        zeros = [[torch.zeros_like(p) for p in params] for _ in range(n)]
+        state = {"mu": zeros[0], "nu": zeros[1],
+                 "count": torch.zeros((), dtype=torch.int32,
+                                      device=params[0].device)}
+        if amsgrad:
+            state["nu_max"] = zeros[2]
+        return state
+
+    def update(grads, state, params, emit=None, acc_div=None):
+        if wd:
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        mu = update_moment(grads, state["mu"], b1, 1)
+        nu = update_moment(grads, state["nu"], b2, 2)
         count = state["count"] + 1
-        steps = count.to(torch.float32)
-        mu_hat = torch._foreach_div(mu, 1 - torch.pow(b1, steps))
-        nu_hat = torch._foreach_div(nu, 1 - torch.pow(b2, steps))
-        nu_max = torch._foreach_maximum(state["nu_max"], nu_hat)
+        mu_hat = bias_correction(mu, b1, count)
+        nu_hat = bias_correction(nu, b2, count)
+        new = {"mu": mu, "nu": nu, "count": count}
+        if amsgrad:
+            nu_hat = new["nu_max"] = torch._foreach_maximum(state["nu_max"],
+                                                            nu_hat)
         u = torch._foreach_div(mu_hat, torch._foreach_add(
-            torch._foreach_sqrt(nu_max), eps))
-        return torch._foreach_mul(u, -lr), {"mu": mu, "nu": nu,
-                                            "nu_max": nu_max, "count": count}
+            torch._foreach_sqrt(nu_hat), eps))
+        return torch._foreach_mul(u, -lr), new
 
     return Optimizer(init, update)
 
@@ -233,7 +271,7 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
     if cfg.client_optimizer == "sgd":
         opt = _sgd(cfg.lr, cfg.momentum)
     elif cfg.client_optimizer == "adam":
-        opt = _amsgrad(cfg.lr, cfg.wd)
+        opt = decayed_adam(cfg.lr, cfg.wd, amsgrad=True)
     else:
         raise ValueError(f"unknown client_optimizer: {cfg.client_optimizer!r}")
     return _multi_steps(opt) if cfg.accum_steps > 1 else opt
@@ -374,16 +412,17 @@ def make_forward(module: torch.nn.Module) -> Callable:
 
 
 def make_train_forward(module: torch.nn.Module) -> Callable:
-    """``forward(variables, x, generator) -> (out, colls)``: the train-mode
-    forward over a state dict, with ``colls`` the new values of the
-    collections it updated (``{"<layer>.running_mean": ..., ...}``, empty
-    for a model without BatchNorm), never written into ``variables``."""
+    """``forward(variables, x, generator, *args) -> (out, colls)``: the
+    train-mode forward over a state dict (``args`` follow ``x``, as DARTS's
+    mixing weights do), with ``colls`` the new values of the collections it
+    updated (``{"<layer>.running_mean": ..., ...}``, empty for a model
+    without BatchNorm), never written into ``variables``."""
     owners = {m: name for name, m in module.named_modules()
               if isinstance(m, BatchNorm)}
 
-    def forward(variables, x, generator):
+    def forward(variables, x, generator, *args):
         with collect_batch_stats() as sink:
-            out = functional_call(module, variables, (x,),
+            out = functional_call(module, variables, (x, *args),
                                   {"train": True, "generator": generator})
         colls = {}
         for m, (mean, var) in sink.items():

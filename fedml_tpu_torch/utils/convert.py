@@ -10,7 +10,8 @@ paths). Leaves by layer type:
   HWIO -> OIHW) and ``bias`` -> ``bias`` (absent for a layer without one);
 - LayerNorm and GroupNorm: ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 - BatchNorm (``models/common.BatchNorm``): ``scale`` and ``bias`` as
-  above, and from the ``batch_stats`` collection ``mean`` ->
+  above (an affine-free one has neither, and flax no params entry for
+  it), and from the ``batch_stats`` collection ``mean`` ->
   ``running_mean``, ``var`` -> ``running_var``;
 - Embedding: ``embedding`` -> ``weight``, the layout unchanged;
 - LSTM (``models/common.LSTM``): flax's ``OptimizedLSTMCell`` holds eight
@@ -162,10 +163,13 @@ def flax_to_state_dict(variables: Mapping[str, Any],
                                           target).items():
                 put(f"{tname}.{leaf}", arr, f"{fname}/{leaf}")
             continue
-        if fname not in params:
-            raise KeyError(f"flax module {fname!r} (for {tname!r}) missing")
-        leaves = params[fname]
         leaf_map = _leaf_map(model.get_submodule(tname), tname)
+        if fname in params:
+            leaves = params[fname]
+        elif fname in bns and model.get_submodule(tname).weight is None:
+            leaves = {}  # an affine-free BatchNorm: flax keeps no params
+        else:
+            raise KeyError(f"flax module {fname!r} (for {tname!r}) missing")
         bad = set(leaves) - set(leaf_map)
         if bad:
             raise ValueError(f"{fname}: unknown leaves {sorted(bad)}")

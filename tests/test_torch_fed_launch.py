@@ -1,8 +1,9 @@
 """The port's fed_launch: every ported ``--algo`` runs end to end on the
-CPU through ``main`` (LR on blob, a few rounds), every unported one raises
-naming its ROADMAP item before anything is built, and ``--fused_rounds``
-takes the fused driver where the API has one and the host loop, with a
-warning, where it has none.
+CPU through ``main`` (LR on blob, a few rounds; split learning, vertical
+FL, FedGKT and FedNAS one round each on blob or img_blob), the one
+unported raises naming its ROADMAP item before anything is built, and
+``--fused_rounds`` takes the fused driver where the API has one and the
+host loop, with a warning, where it has none.
 """
 
 import logging
@@ -38,9 +39,23 @@ PORTED = {
 }
 
 
+# the algorithms with their own loops (ROADMAP item 27), one round each
+SLICE_F = {
+    "split_nn": ["--dataset", "blob", "--lr", "0.01"],
+    "vertical_fl": ["--dataset", "blob", "--party_num", "3"],
+    "fedgkt": ["--dataset", "img_blob", "--client_num_in_total", "2",
+               "--batch_size", "16", "--epochs_server", "1"],
+    "fednas": ["--dataset", "img_blob", "--client_num_in_total", "2",
+               "--batch_size", "16", "--nas_variant", "gdas",
+               "--nas_retrain_rounds", "1"],
+}
+
+
 def test_every_algo_is_ported_or_names_its_item():
-    assert set(PORTED) | set(fed_launch.NOT_PORTED) == set(fed_launch.ALGOS)
-    assert not set(PORTED) & set(fed_launch.NOT_PORTED)
+    ported = set(PORTED) | set(SLICE_F)
+    assert ported | set(fed_launch.NOT_PORTED) == set(fed_launch.ALGOS)
+    assert not ported & set(fed_launch.NOT_PORTED)
+    assert set(fed_launch.NOT_PORTED) == {"fedavg_async"}
 
 
 @pytest.mark.parametrize("algo", sorted(PORTED))
@@ -61,6 +76,44 @@ def test_ported_algo_runs_on_the_cpu(algo, tmp_path):
         assert np.isfinite(final["test_loss"])
         assert final["test_acc"] > 0.5, final
     assert read_metrics(str(run_dir))
+
+
+@pytest.mark.parametrize("algo", sorted(SLICE_F))
+def test_slice_f_algo_runs_one_round_on_the_cpu(algo, tmp_path):
+    run_dir = tmp_path / "run"
+    final = fed_launch.main(["--algo", algo, *BASE, *SLICE_F[algo],
+                             "--comm_round", "1", "--run_dir",
+                             str(run_dir)])
+    recs = read_metrics(str(run_dir))
+    assert recs
+    for rec in recs:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                assert np.isfinite(v), (k, rec)
+    if algo == "vertical_fl":
+        assert np.isfinite(final["train_loss"])
+        assert 0.0 <= final["test_acc"] <= 1.0
+    elif algo == "fednas":
+        assert final["genotype"].startswith("Genotype(")
+        assert np.isfinite(final["retrain_test_loss"])
+        assert 0.0 <= final["test_acc"] <= 1.0
+    else:
+        assert np.isfinite(final["test_loss"])
+        assert 0.0 <= final["test_acc"] <= 1.0
+
+
+@pytest.mark.parametrize("algo, argv, match", [
+    ("split_nn", ["--dataset", "img_blob"], "flat features"),
+    ("vertical_fl", ["--dataset", "blob", "--party_num", "21"],
+     "--party_num 21"),
+    ("fedgkt", ["--dataset", "blob"], "NHWC"),
+    ("fednas", ["--dataset", "blob"], "NHWC")])
+def test_slice_f_refuses_a_wrong_dataset_before_the_sink(algo, argv, match,
+                                                         tmp_path):
+    with pytest.raises(SystemExit, match=match):
+        fed_launch.main(["--algo", algo, *BASE, *argv,
+                         "--run_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
 
 
 @pytest.mark.parametrize("algo", sorted(fed_launch.NOT_PORTED))

@@ -342,9 +342,27 @@ def test_factory_names_and_sizes():
     for arch in ("vgg13", "vgg16", "vgg19"):
         with torch.device("meta"):
             assert create_model(arch, 10).fc3.out_features == 10
-    for name in ("resnet8_gkt", "resnet56_gkt_server", "darts"):
-        with pytest.raises(NotImplementedError, match="item 27"):
-            create_model(name, 10)
+    # FedGKT's and FedNAS's models at the JAX factory's sizes
+    for name, kw in (("resnet8_gkt", {}), ("resnet56_gkt_server", {}),
+                     ("darts", {}), ("darts", dict(C=8, layers=2))):
+        with torch.device("meta"):
+            model = create_model(name, 10, **kw)
+        flax_model = jax_create_model(name, 10, **kw)
+        x = jnp.zeros((1, 32, 32, 3))
+        if name == "darts":
+            w = jnp.zeros((flax_model.num_edges(flax_model.steps), 8))
+            args = (x, w, w)
+        elif name == "resnet56_gkt_server":
+            args = (jnp.zeros((1, 32, 32, 64)),)
+        else:
+            args = (x,)
+        shapes = jax.eval_shape(lambda: flax_model.init(
+            jax.random.key(0), *args, train=False))
+        for col, tensors in (("params", model.parameters()),
+                             ("batch_stats", model.buffers())):
+            assert sum(t.numel() for t in tensors) == sum(
+                int(np.prod(a.shape))
+                for a in jax.tree.leaves(shapes.get(col, {}))), (name, col)
 
 
 def test_mobilenet_fedavg_round_matches_jax():

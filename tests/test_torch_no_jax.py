@@ -2,7 +2,10 @@
 fedml_tpu module, and its CUDA default never falls back to the CPU.
 
 tests/conftest.py imports jax into this process, so the runtime check runs
-the port in a subprocess.
+the port in a subprocess. The child runs torch on one thread, as the
+port's tests do (``tests/_torch_threads.py``): beside five other busy test
+workers a torch on every core oversubscribes them, and the child's ~6 s
+of work took 118 to 187 s.
 """
 
 import json
@@ -25,6 +28,8 @@ FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax)(\.|$)|^fedml_tpu(\.|$)")
 
 _CHILD = r"""
 import importlib, json, pkgutil, sys
+import torch
+torch.set_num_threads(1)
 import fedml_tpu_torch
 for m in pkgutil.walk_packages(fedml_tpu_torch.__path__, "fedml_tpu_torch."):
     importlib.import_module(m.name)
@@ -100,6 +105,18 @@ eff = FedAvgAPI(ids, create_model("efficientnet-b0", ids.class_num),
                     comm_round=1, client_num_per_round=2,
                     train=TrainConfig(batch_size=4, lr=0.1)))
 eff.run_round(0)
+# split learning, vertical FL, FedGKT and one FedNAS search round with its
+# genotype retrained through FedAvg
+for algo, extra in (("split_nn", ["--dataset", "blob", "--lr", "0.01"]),
+                    ("vertical_fl", ["--dataset", "blob"]),
+                    ("fedgkt", ["--dataset", "img_blob"]),
+                    ("fednas", ["--dataset", "img_blob",
+                                "--nas_retrain_rounds", "1"])):
+    algos[algo] = sorted(fed_launch.main([
+        "--algo", algo, *extra, "--client_num_in_total", "2",
+        "--client_num_per_round", "2", "--comm_round", "1",
+        "--batch_size", "16", "--device", "cpu",
+        "--run_dir", sys.argv[1] + "/" + algo]))
 print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
                   "lm_tokens": float(stats["count"]),
                   "silo_rounds": [r["round"] for r in hist],
@@ -122,7 +139,9 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     assert sorted(out["algos"]) == sorted(
         ["fedopt", "fedavg_robust", "fednova", "hierarchical",
          "turboaggregate", "centralized", "decentralized", "contribution",
-         "fedseg"])
+         "fedseg", "split_nn", "vertical_fl", "fedgkt", "fednas"])
+    assert {"genotype", "retrain_test_acc"} <= set(out["algos"]["fednas"])
+    assert "test_acc" in out["algos"]["fedgkt"]
     assert "test_mIoU" in out["algos"]["fedseg"]
     assert "regret" in out["algos"]["decentralized"]
     assert "influence" in out["algos"]["contribution"]
@@ -140,7 +159,11 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "experiments.fed_launch", "models.resnet", "models.resnet_gn",
               "models.rnn", "data.leaf", "data.leaf_gen",
               "models.mobilenet", "models.mobilenet_v3", "models.vgg",
-              "models.efficientnet", "models.segnet", "algorithms.fedseg"):
+              "models.efficientnet", "models.segnet", "algorithms.fedseg",
+              "models.vfl", "models.resnet_gkt", "models.darts",
+              "models.darts_eval", "models.darts_visualize",
+              "algorithms.split_nn", "algorithms.vertical_fl",
+              "algorithms.fedgkt", "algorithms.fednas"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
     assert not bad, bad
