@@ -26,8 +26,9 @@
    block with shuffle and dropout on (cuDNN deterministic) and bounds the
    difference by 1e-6; then times the host loop and fused blocks (median
    and spread of three runs of 5 rounds), profiles each (device ms and
-   launch calls of a host round and a 2-round fused block; the profiler
-   must see one aggregation kernel a fused round, as the driver counts)
+   launch calls of a host round, its CUDA activity alone, and a 2-round
+   fused block; the profiler must see one aggregation kernel a fused
+   round, as the driver counts)
    and prints each graph's capture time and memory pool;
 4b. the same in bf16 off f32 masters (the JAX headline's
    ``bench_fedavg_cnn_fused_headline``; one timed run each way), and one
@@ -175,7 +176,31 @@
    ``--arch_unrolled``, FedGKT two rounds) on the card and on the CPU
    from the same weights and
    orders (TF32 off): params, BN statistics and alphas against atol 1e-4
-   beside the CPU round's own drift. Phases 23-26 print their time.
+   beside the CPU round's own drift. Phases 23-26 print their time;
+27. drives the cross-silo federation of the FEMNIST CNN (10 silos, batch
+   20, lr 0.1, cuDNN deterministic) across real transports: 3 rounds of
+   ``delta_int8`` through ``main_fedavg.main --backend tcp`` (the CLI's
+   ports 29500 + rank) and ``--backend inproc``, 2 rounds of
+   ``topk_ef_int8:0.05`` over ROUTED (the port's broker built from
+   ``fedml_tpu_torch/native/router.cpp``, with a token; a wrong token is
+   refused) and inproc through the API, and 1 round of ``none`` over MQTT
+   (3 silos, JSON frames) and inproc: each transport ends on inproc's
+   model bit for bit, the int8 launches equal the schedule, and it prints
+   rounds/s and the wire bytes a round beside inproc's with the card's
+   name and power limit; then the FedOpt-adam server over TCP (3 rounds,
+   server lr 0.003, the test loss falls) and server SGD at lr 1 against
+   FedAvg (1e-6); resume: 2 + 2 rounds (the second half over TCP) against
+   4 uninterrupted, bit for bit in the server's model and every silo's
+   residual (uplink top-k + int8, downlink full precision), and the
+   simulation's ``--checkpoint_dir`` / ``--resume`` checkpoints; the
+   buffered close with the aggregation kernel's front end as
+   ``aggregate_fn``, one launch a round, each round within 1e-6 of the
+   streaming fold of the same reports. gRPC is not driven here (it is
+   held on the CPU, where grpcio is installed);
+28. runs one cross-silo LR round over TCP with the FedOpt-adam server on
+   the card and on the CPU from the same weights (TF32 off): params and
+   Adam state within 1e-5, beside the CPU round's drift under a 1e-7
+   relative perturbation. Phases 27-28 print their time.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -1199,18 +1224,20 @@ def phase_quant_vs_plain():
     return {"checks": checks, "max_abs_err": max_abs, "timing": timing}
 
 
-def _silo_launches(rounds, silos, policy):
+def _silo_launches(rounds, silos, policy, downlink=True):
     """Launches the schedule implies: one quantize per reply and per
     compressed broadcast (rounds 1..R-1); one dequantize for the server's
     decode of each reply, and per compressed broadcast one for the
     server's mirror and one for each silo's apply. Under top-k + int8 the
     quantize launch also writes the error-feedback residual of the kept
     values (ops/sparsify.py), so an encode launches no dequantize. At 5
-    rounds and 10 silos: 54 / 94 under both compressed policies."""
+    rounds and 10 silos: 54 / 94 under both compressed policies; with the
+    downlink off (every broadcast full precision) one of each per reply."""
     if policy == "none":
         return {"quant": 0, "dequant": 0}
-    encodes = rounds * silos + rounds - 1
-    dequant = rounds * silos + (rounds - 1) * (silos + 1)
+    bcasts = rounds - 1 if downlink else 0
+    encodes = rounds * silos + bcasts
+    dequant = rounds * silos + bcasts * (silos + 1)
     return {"quant": encodes, "dequant": dequant}
 
 
@@ -1550,11 +1577,12 @@ def _host_vs_fused_timing(parts, compute_dtype=None, reps=3,
         host.run_round(r)
     host_rps = _rounds_per_s(lambda: [host.run_round(r) for r in span],
                              timed, reps)
-    # the first timed round under the profiler (its ~8,000 launches make
-    # the trace's processing the slowest part of this phase): the busy
-    # share takes its device time against the rate over all the timed
-    # rounds
-    host_prof = _profile(lambda: host.run_round(span[0]), 1)
+    # the first timed round under the profiler, its CUDA activity alone
+    # (its ~9,000 launches' operator events made the trace's processing
+    # the slowest part of this phase; no kernel is counted in it): the
+    # busy share takes its device time against the rate over all the
+    # timed rounds
+    host_prof = _profile(lambda: host.run_round(span[0]), 1, cpu_ops=False)
 
     api = make_api(parts, first + timed, compute_dtype=compute_dtype)
     fused = api.fused_rounds()
@@ -3139,6 +3167,426 @@ def phase_slice_f_card_vs_cpu():
     return out
 
 
+# -- the cross-silo federation across real transports (phases 27-28) -------
+
+SOCKET_R = 3  # TCP rounds under delta_int8, and the FedOpt-adam server's
+ROUTED_R = 2  # ROUTED rounds under topk_ef_int8:0.05
+RESUME_R = 4  # the uninterrupted run; the resumed one stops at half
+MQTT_SILOS = 3  # JSON lists of 1.2 M floats a frame: 3 silos, 1 round
+SILO_TOKEN = b"chip-smoke-broker-secret"
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+
+def _free_ports(n):
+    """``n`` loopback ports the OS reports free."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return {r: ("127.0.0.1", sock.getsockname()[1])
+                for r, sock in enumerate(socks)}
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def _int8_launches():
+    from fedml_tpu_torch.ops import quantize as tq
+    return {"quant": tq.quantize_int8.launches,
+            "dequant": tq.dequantize_int8.launches}
+
+
+def _launch_delta(before):
+    after = _int8_launches()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _steady_rounds_per_s(durations):
+    """Rounds/s over the rounds after the first (its wall includes the
+    warm-up), or over all of them when there is one."""
+    steady = durations[1:] or durations
+    return len(steady) / sum(steady)
+
+
+def _silo_cli(backend, policy, rounds):
+    """``main_fedavg.main --backend <backend>`` on the FEMNIST CNN over 10
+    silos, with the int8 launches of the run, the final model (the entry
+    point returns the last record; the model is taken from the launcher
+    it calls) and the run's summary record."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.experiments import main_fedavg
+    from fedml_tpu_torch.utils.metrics import read_metrics
+
+    run_dir = os.path.join(ROOT, "runs", "chip_smoke",
+                           f"sock_{backend}_{policy.replace(':', '_')}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run, models = cs.run_fedavg_cross_silo, []
+
+    def keep_model(*a, **kw):
+        out = run(*a, **kw)
+        models.append(out[0])
+        return out
+    cs.run_fedavg_cross_silo = keep_model
+    before = _int8_launches()
+    t = time.perf_counter()
+    try:
+        main_fedavg.main(MAIN_FLAGS + [
+            "--backend", backend, "--compression", policy, "--comm_round",
+            str(rounds), "--run_dir", run_dir])
+    finally:
+        cs.run_fedavg_cross_silo = run
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    recs = read_metrics(run_dir)
+    summary = recs[-1]
+    return {"model": models[0], "launches": _launch_delta(before),
+            "history": [r for r in recs if "round" in r], "wall_s": wall,
+            "rounds_per_s": _steady_rounds_per_s(
+                summary["round_duration_s"]),
+            "bytes_up_per_round": summary["comm_bytes_up_per_round"],
+            "bytes_down_per_round": summary["comm_bytes_down_per_round"]}
+
+
+def _silo_api(policy, rounds, silos=HEADLINE[0], **kw):
+    """``run_fedavg_cross_silo`` on the main path's dataset and CNN, with
+    the int8 launches, rounds/s and wire bytes of the run."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.utils.tracing import RoundTimer
+
+    ds, model, task, tc = _main_api_parts()
+    timer = RoundTimer()
+    before = _int8_launches()
+    t = time.perf_counter()
+    final, hist = cs.run_fedavg_cross_silo(
+        ds, model, task=task, worker_num=silos, comm_round=rounds,
+        train_cfg=tc, compression=policy, device="cuda", timer=timer,
+        join_timeout_s=300, **kw)
+    torch.cuda.synchronize()
+    return {"model": final, "history": hist,
+            "launches": _launch_delta(before),
+            "wall_s": time.perf_counter() - t,
+            "rounds_per_s": _steady_rounds_per_s(
+                [r["duration_s"] for r in timer.round_records()]),
+            "bytes_up_per_round": timer.comm_bytes_up / max(1, len(hist)),
+            "bytes_down_per_round": timer.comm_bytes_down / max(1,
+                                                               len(hist))}
+
+
+def _check_same_model(name, got, want):
+    bad = [k for k in want if not _same_bits(got[k], want[k])]
+    if bad or list(got) != list(want):
+        raise AssertionError(f"{name}: differs from its reference in {bad} "
+                             f"(max abs {_max_diff(got, want):.3g})")
+
+
+def _check_launches(name, got, want):
+    if got != want:
+        raise AssertionError(f"{name}: int8 launches {got}, the schedule "
+                             f"implies {want}")
+
+
+def _buffered_close_path(silos, rounds):
+    """The buffered close with the aggregation kernel's front end as
+    ``aggregate_fn``: its launches, and each round's result against the
+    streaming fold of the same reports."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.ops import aggregate
+
+    ds, model, task, tc = _main_api_parts()
+    diffs = []
+
+    def fused_beside_the_fold(stacked, weights):
+        out = aggregate.tree_weighted_mean_fused(stacked, weights)
+        fold = cs.FedAvgAggregator(silos)
+        for i, w in enumerate(weights.tolist()):
+            fold.add_local_trained_result(
+                i, {k: v[i] for k, v in stacked.items()}, w)
+        diffs.append(_max_diff(out, fold.aggregate()))
+        return out
+
+    def server_factory(size, com, _aggregator, global_model, on_round_done):
+        return cs.FedAvgServerManager(
+            0, size, com, cs.FedAvgAggregator(
+                size - 1, aggregate_fn=fused_beside_the_fold), rounds,
+            ds.client_num, global_model, on_round_done=on_round_done)
+    aggregate.weighted_mean_flat.launches = 0
+    _, hist, _ = cs.launch_federation(ds, model, task, silos, tc,
+                                      server_factory, device="cuda",
+                                      join_timeout_s=300)
+    torch.cuda.synchronize()
+    launches = aggregate.weighted_mean_flat.launches
+    if launches != rounds:
+        raise AssertionError(f"buffered close: {launches} aggregation "
+                             f"launches in {rounds} rounds")
+    if len(diffs) != rounds or not max(diffs) <= 1e-6:
+        raise AssertionError(f"buffered close vs the streaming fold: {diffs}")
+    _check_evals("buffered close", hist, list(range(rounds)), falls=False)
+    return {"launches": launches, "max_abs_diff_to_fold": diffs}
+
+
+def _resume_paths(silos):
+    """A silo run of RESUME_R rounds (inproc) against one stopped at half
+    and resumed (over TCP): the server's model and every silo's EF
+    residual bit for bit; the same for the simulation's
+    ``--checkpoint_dir`` / ``--resume`` (its round-RESUME_R checkpoints).
+    The uplink is top-k + int8 with its residual; the downlink is full
+    precision (a resumed federation starts without the silos' mirror)."""
+    import numpy as np
+    import torch
+    from fedml_tpu_torch.comm.policy import CompressionPolicy
+    from fedml_tpu_torch.experiments import main_fedavg
+    from fedml_tpu_torch.state.residuals import SiloResidualStore
+
+    policy = CompressionPolicy("topk_ef_int8", topk_frac=0.05,
+                               downlink=False)
+    base = os.path.join(ROOT, "runs", "chip_smoke", "resume")
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = {k: os.path.join(base, k) for k in ("whole", "halves", "sim_whole",
+                                               "sim_halves")}
+    whole = _silo_api(policy, RESUME_R, checkpoint_dir=dirs["whole"])
+    half = RESUME_R // 2
+    first = _silo_api(policy, half, checkpoint_dir=dirs["halves"],
+                      backend="TCP", addresses=_free_ports(silos + 1))
+    rest = _silo_api(policy, RESUME_R, checkpoint_dir=dirs["halves"],
+                     resume=True, backend="TCP",
+                     addresses=_free_ports(silos + 1))
+    _check_same_model("resumed silo run", rest["model"], whole["model"])
+    if [r["round"] for r in first["history"] + rest["history"]] != list(
+            range(RESUME_R)):
+        raise AssertionError("resumed rounds "
+                             f"{first['history'] + rest['history']}")
+    d = sum(v.numel() for v in whole["model"].values())
+    for rank in range(1, silos + 1):
+        got, want = (SiloResidualStore(os.path.join(
+            dirs[k], f"silo_{rank}")).load(RESUME_R, d)
+            for k in ("halves", "whole"))
+        if want is None or not np.array_equal(got, want):
+            raise AssertionError(f"silo {rank}: the resumed residual "
+                                 "differs from the uninterrupted run's")
+    launches = {k: first["launches"][k] + rest["launches"][k]
+                for k in first["launches"]}
+    for name, got in (("whole", whole["launches"]), ("resumed", launches)):
+        _check_launches(f"resume {name}", got, _silo_launches(
+            RESUME_R, silos, "topk_ef_int8", downlink=False))
+    # the simulation's checkpoint and resume, through the CLI
+    for name, rounds, extra in (("sim_whole", RESUME_R, []),
+                                ("sim_halves", half, []),
+                                ("sim_halves", RESUME_R, ["--resume"])):
+        run_dir = os.path.join(base, f"run_{name}_{rounds}")
+        main_fedavg.main(MAIN_FLAGS + [
+            "--comm_round", str(rounds), "--checkpoint_dir", dirs[name],
+            "--run_dir", run_dir] + extra)
+    blobs = []
+    for name in ("sim_whole", "sim_halves"):
+        with np.load(os.path.join(dirs[name],
+                                  f"round_{RESUME_R:08d}")) as z:
+            blobs.append({k: z[k] for k in z.files})
+    if list(blobs[0]) != list(blobs[1]) or not all(
+            np.array_equal(blobs[0][k], blobs[1][k]) for k in blobs[0]):
+        raise AssertionError("the resumed simulation's checkpoint differs")
+    torch.cuda.synchronize()
+    log(f"resume: {half} + {RESUME_R - half} rounds (the second half over "
+        f"TCP) == {RESUME_R} uninterrupted, bit for bit: the server's model "
+        f"and {silos} silos' residuals; int8 launches {launches}; the "
+        f"simulation's checkpoints at round {RESUME_R} equal too")
+    return {"launches": launches, "whole_launches": whole["launches"]}
+
+
+def phase_cross_silo_sockets():
+    """Phase 27: the cross-silo federation of the FEMNIST CNN across real
+    transports, against the in-process router."""
+    import torch
+    from fedml_tpu_torch.comm.mqtt import MiniMqttBroker
+    from fedml_tpu_torch.comm.routed import RoutedCommManager
+    from fedml_tpu_torch.native import NativeRouter
+
+    t0 = time.perf_counter()
+    silos = HEADLINE[0]
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    # the transports must agree bit for bit: no run-to-run choice of
+    # convolution algorithm
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"smi": _smi()}
+    try:
+        # TCP through the CLI against inproc
+        runs = {b: _silo_cli(b, "delta_int8", SOCKET_R)
+                for b in ("inproc", "tcp")}
+        want = _silo_launches(SOCKET_R, silos, "delta_int8")
+        for b, r in runs.items():
+            _check_launches(f"{b} delta_int8", r["launches"], want)
+        _check_same_model("tcp vs inproc", runs["tcp"]["model"],
+                          runs["inproc"]["model"])
+        out["tcp"] = {b: {k: v for k, v in r.items() if k != "model"}
+                      for b, r in runs.items()}
+        # ROUTED through the API, against the port's broker, with a token
+        inproc_k = _silo_api("topk_ef_int8:0.05", ROUTED_R)
+        with NativeRouter(token=SILO_TOKEN) as router:
+            addr = {"router": ("127.0.0.1", router.port)}
+            routed = _silo_api("topk_ef_int8:0.05", ROUTED_R,
+                               backend="ROUTED", addresses=addr,
+                               token=SILO_TOKEN)
+            frames = router.frames_routed
+            try:
+                RoutedCommManager(1, addr["router"], token=b"wrong")
+            except ConnectionError as exc:
+                refused = str(exc)
+            else:
+                raise AssertionError("the broker took a wrong token")
+        want = _silo_launches(ROUTED_R, silos, "topk_ef_int8")
+        for name, r in (("inproc", inproc_k), ("routed", routed)):
+            _check_launches(f"{name} topk_ef_int8", r["launches"], want)
+        _check_same_model("routed vs inproc", routed["model"],
+                          inproc_k["model"])
+        out["routed"] = {n: {k: v for k, v in r.items() if k != "model"}
+                         for n, r in (("inproc", inproc_k),
+                                      ("routed", routed))}
+        out["routed"]["frames_routed"] = frames
+        # MQTT over the in-process broker, JSON frames
+        broker = MiniMqttBroker()
+        try:
+            mqtt = _silo_api("none", 1, silos=MQTT_SILOS, backend="MQTT",
+                             addresses={"broker": ("127.0.0.1",
+                                                   broker.port)})
+        finally:
+            broker.stop()
+        inproc_3 = _silo_api("none", 1, silos=MQTT_SILOS)
+        _check_same_model("mqtt vs inproc", mqtt["model"], inproc_3["model"])
+        out["mqtt"] = {"wall_s": mqtt["wall_s"],
+                       "inproc_wall_s": inproc_3["wall_s"]}
+        # the FedOpt-adam server over TCP, and server SGD at lr 1 == FedAvg
+        fedopt = _silo_api("delta_int8", SOCKET_R, backend="TCP",
+                           addresses=_free_ports(silos + 1),
+                           server_optimizer="adam", server_lr=FEDOPT_LR)
+        _check_launches("fedopt over tcp", fedopt["launches"],
+                        _silo_launches(SOCKET_R, silos, "delta_int8"))
+        _check_evals("fedopt over tcp", fedopt["history"],
+                     list(range(SOCKET_R)))
+        sgd = _silo_api("none", 1, backend="TCP",
+                        addresses=_free_ports(silos + 1),
+                        server_optimizer="sgd", server_lr=1.0)
+        avg = _silo_api("none", 1)
+        sgd_diff = _max_diff(sgd["model"], avg["model"])
+        if not sgd_diff <= FEDOPT_SGD_TOL:
+            raise AssertionError(f"server sgd lr 1 vs fedavg: {sgd_diff}")
+        out["fedopt"] = {"history": fedopt["history"],
+                         "launches": fedopt["launches"],
+                         "rounds_per_s": fedopt["rounds_per_s"],
+                         "sgd_vs_fedavg": sgd_diff}
+        out["resume"] = _resume_paths(silos)
+        out["buffered_close"] = _buffered_close_path(silos, 2)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    out["launches"] = {k: runs["tcp"]["launches"][k]
+                       + routed["launches"][k] for k in ("quant", "dequant")}
+    tcp_r, inp_r = out["tcp"]["tcp"], out["tcp"]["inproc"]
+    log(f"cross-silo over sockets on {out['smi']}: TCP == inproc bit for "
+        f"bit after {SOCKET_R} delta_int8 rounds (int8 launches "
+        f"{tcp_r['launches']}); rounds/s TCP {tcp_r['rounds_per_s']:.3f} vs "
+        f"inproc {inp_r['rounds_per_s']:.3f}; wire a round TCP up "
+        f"{tcp_r['bytes_up_per_round']:.0f} B down "
+        f"{tcp_r['bytes_down_per_round']:.0f} B, inproc up "
+        f"{inp_r['bytes_up_per_round']:.0f} B down "
+        f"{inp_r['bytes_down_per_round']:.0f} B")
+    log(f"ROUTED (token) == inproc bit for bit after {ROUTED_R} "
+        f"topk_ef_int8:0.05 rounds ({frames} frames through the broker, "
+        f"int8 launches {routed['launches']}); rounds/s ROUTED "
+        f"{routed['rounds_per_s']:.3f} vs inproc "
+        f"{inproc_k['rounds_per_s']:.3f}; wire a round ROUTED up "
+        f"{routed['bytes_up_per_round']:.0f} B down "
+        f"{routed['bytes_down_per_round']:.0f} B, inproc up "
+        f"{inproc_k['bytes_up_per_round']:.0f} B down "
+        f"{inproc_k['bytes_down_per_round']:.0f} B; a wrong token: "
+        f"{refused[:60]}...")
+    log(f"MQTT == inproc bit for bit ({MQTT_SILOS} silos, 1 round of none, "
+        f"JSON frames): {mqtt['wall_s']:.2f} s vs {inproc_3['wall_s']:.2f} s")
+    log(f"FedOpt-adam (lr {FEDOPT_LR}) over TCP: test loss "
+        f"{fedopt['history'][0]['test_loss']:.4f} -> "
+        f"{fedopt['history'][-1]['test_loss']:.4f}; server sgd at lr 1 vs "
+        f"fedavg after a round: {sgd_diff:.3g} (bound {FEDOPT_SGD_TOL})")
+    log(f"buffered close: {out['buffered_close']['launches']} aggregation "
+        f"launches in 2 rounds, each round within "
+        f"{max(out['buffered_close']['max_abs_diff_to_fold']):.3g} of the "
+        f"streaming fold (bound 1e-6)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 27 took {out['wall_s']:.1f} s")
+    return out
+
+
+def _fedopt_silo_round(ds, device, addresses, init=None):
+    """One cross-silo LR round with the FedOpt-adam server over TCP;
+    returns (model, server optimizer state)."""
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.functional import TrainConfig
+
+    model = create_model("lr", ds.class_num, input_shape=(20,))
+
+    def server_factory(size, com, aggregator, global_model, on_round_done):
+        return cs.FedOptServerManager(
+            0, size, com, aggregator, 1, ds.client_num, global_model,
+            param_names=[n for n, _ in model.named_parameters()],
+            server_optimizer="adam", server_lr=0.01,
+            on_round_done=on_round_done)
+    final, _, server = cs.launch_federation(
+        ds, model, "classification", 4, TrainConfig(
+            epochs=2, batch_size=16, lr=0.1, shuffle=False),
+        server_factory, backend="TCP", addresses=addresses, device=device,
+        init_variables=init, join_timeout_s=120)
+    return final, server.server_opt_state
+
+
+def phase_cross_silo_sockets_card_vs_cpu():
+    """Phase 28: one cross-silo LR round over TCP with the FedOpt-adam
+    server on the card and on the CPU from the same weights (TF32 off):
+    params and Adam state within 1e-5, beside the CPU round's drift under a
+    1e-7 relative perturbation of its weights."""
+    import torch
+    from fedml_tpu_torch.data.synthetic import make_blob_federated
+
+    ds = make_blob_federated(client_num=8, seed=0)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = _fedopt_silo_round(ds, "cuda", _free_ports(5))
+        cpu = _fedopt_silo_round(ds, "cpu", _free_ports(5))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    diff = _max_diff(card, cpu)
+    from fedml_tpu_torch.algorithms.fedavg_cross_silo import _initial_model
+    from fedml_tpu_torch.models import create_model
+    init = _initial_model(create_model("lr", ds.class_num,
+                                       input_shape=(20,)), 0, "cpu", None)
+    gen = torch.Generator().manual_seed(28)
+    moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+             for k, v in init.items()}
+    drift = _max_diff(_fedopt_silo_round(ds, "cpu", _free_ports(5), init),
+                      _fedopt_silo_round(ds, "cpu", _free_ports(5), moved))
+    if not diff <= 1e-5:
+        raise AssertionError(f"cross-silo FedOpt-adam LR round over TCP, card "
+                             f"vs CPU: {diff}")
+    log(f"cross-silo FedOpt-adam LR round over TCP, card vs CPU (params and "
+        f"adam state): max abs diff {diff:.3g} (atol 1e-5); the CPU round's "
+        f"drift under a 1e-7 perturbation: {drift:.3g}")
+    return {"max_abs_diff": diff, "cpu_drift_1e-7": drift}
+
+
 def _build_each_federation_once() -> None:
     """Each generated federation is built once in a run and handed to every
     later entry-point call with the same arguments: the builders are pure
@@ -3193,6 +3641,11 @@ def main() -> None:
     record["slice_f_card_vs_cpu"] = phase_slice_f_card_vs_cpu()
     record["slice_f_s"] = time.perf_counter() - t_slice_f
     log(f"phases 23-26 took {record['slice_f_s']:.1f} s")
+    t_sockets = time.perf_counter()
+    record["sockets"] = phase_cross_silo_sockets()
+    record["sockets_card_vs_cpu"] = phase_cross_silo_sockets_card_vs_cpu()
+    record["sockets_s"] = time.perf_counter() - t_sockets
+    log(f"phases 27-28 took {record['sockets_s']:.1f} s")
     k = record["kernel"]
     zoo = record["zoo_models"]
     kernels = [{
@@ -3224,6 +3677,8 @@ def main() -> None:
                for a in ("hierarchical", "turboaggregate")},
             **{f"fedseg_{loss}": record["fedseg_path"][loss]["launches"]
                for loss in ("ce", "focal")}},
+        "launches_buffered_close":
+            record["sockets"]["buffered_close"]["launches"],
         "launches_slice_f": {
             **{a: record["split_vertical_paths"][a]["launches"]
                for a in ("vertical_fl", "split_nn")},
@@ -3267,6 +3722,10 @@ def main() -> None:
             "source": "fedml_tpu_torch/csrc/quantize.cu",
             "replaces": f"fedml_tpu/ops/quantize.py:{line}",
             "launches": record["silo_path"]["launches"][kern],
+            "launches_tcp": record["sockets"]["tcp"]["tcp"]["launches"][kern],
+            "launches_routed":
+                record["sockets"]["routed"]["routed"]["launches"][kern],
+            "launches_resume": record["sockets"]["resume"]["launches"][kern],
             "max_abs_err": record["quant"]["max_abs_err"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

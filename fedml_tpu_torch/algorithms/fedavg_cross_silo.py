@@ -25,6 +25,15 @@ dequantize run in the hand-written kernels (ops/quantize.py) on a CUDA
 device. Wire bytes are the encoded frames' lengths, counted into the
 RoundTimer (``comm_bytes_up`` / ``comm_bytes_down``).
 
+The server can instead close each round with a FedOpt step
+(:class:`FedOptServerManager`, ``server_optimizer=``), keep every report
+for a custom ``aggregate_fn`` (the buffered close), and save the round
+state after every round for ``resume`` (``checkpoint_dir``): the server's
+model (and server optimizer state) through ``utils/checkpoint.py``, each
+silo's error-feedback residual in ``state/residuals.py`` under
+``checkpoint_dir/silo_<rank>``. Ranks talk over any transport of
+``comm/registry.py`` (``backend`` with ``addresses`` and ``token``).
+
 Models live on one device (``device``, default CUDA) as state dicts; the
 wire carries numpy arrays. All actors of a process share that device, so
 one lock serializes every device section, as in the JAX package. Random
@@ -33,15 +42,16 @@ port's ``derive_seed`` chain with the JAX package's tags: uplink
 ``(977, round, rank)``, downlink ``(1733, broadcast seq)``. Local
 training seeds are the simulation's ``round_keys``.
 
-Not ported yet, each raising ``NotImplementedError`` when set: the silo
-residual store and resume, deadline/quorum rounds and fault tolerance,
-the FedOpt server, the control plane, observability, serving, the WAN
-world and the multi-job scheduler hooks (see ROADMAP Slice D).
+Not ported yet, each raising ``NotImplementedError`` when set:
+deadline/quorum rounds and fault tolerance, the control plane,
+observability, serving, the WAN world and the multi-job scheduler hooks
+(see ROADMAP Slice D).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional
@@ -107,39 +117,53 @@ class FedAvgAggregator:
     ``check_whether_all_receive`` (:50), ``aggregate`` (:58), seeded
     ``client_sampling`` (:89).
 
-    Aggregation is a streaming in-order prefix fold: as each report
-    arrives, the contiguous worker-index prefix is folded into a weighted
-    running sum (``pt.tree_weighted_fold_*``), and only out-of-order
-    arrivals wait in ``model_dict``. The fold order is always ascending
-    worker index, so every arrival order gives a bit-identical result.
-    When every reporter had an empty shard (all weights 0) the round
-    closes with uniform weights instead of a 0/0 model.
+    Aggregation is a streaming in-order prefix fold (the default): as
+    each report arrives, the contiguous worker-index prefix is folded into
+    a weighted running sum (``pt.tree_weighted_fold_*``), and only
+    out-of-order arrivals wait in ``model_dict``. The fold order is always
+    ascending worker index, so every arrival order gives a bit-identical
+    result.
+
+    A custom ``aggregate_fn(stacked, weights)`` (rules that need the whole
+    cohort, or the aggregation kernel's front end
+    ``ops.aggregate.tree_weighted_mean_fused``) keeps the buffered close:
+    every report waits in ``model_dict`` and the close stacks them in
+    worker order and calls ``aggregate_fn`` once, with the f32 weights on
+    the reports' device. Either way, when every reporter had an empty
+    shard (all weights 0) the round closes with uniform weights instead
+    of a 0/0 model.
     """
 
     def __init__(self, worker_num: int, aggregate_fn=None):
-        if aggregate_fn is not None:
-            raise NotImplementedError(
-                "a custom aggregate_fn (the robust rules' buffered close) is "
-                "not ported yet: ROADMAP Queue 1, Slice B item 11")
         self.worker_num = worker_num
-        #: the reports not yet folded (out of order, or waiting for a
-        #: positive weight)
+        #: streaming close: the reports not yet folded (out of order, or
+        #: waiting for a positive weight); buffered close: every report
         self.model_dict: Dict[int, Dict[str, torch.Tensor]] = {}
         self.sample_num_dict: Dict[int, float] = {}
         self.flag_client_model_uploaded = [False] * worker_num
+        self._aggregate_fn = aggregate_fn
+        self._streaming = aggregate_fn is None
         self._reset_round()
 
     def add_local_trained_result(self, worker_idx: int, model_params,
                                  sample_num: float) -> None:
         """Record one report and fold the ready prefix (device work: call
         under the device lock)."""
+        if self._streaming and worker_idx < self._fold_next:
+            # already folded: a transport duplicate carries the same
+            # payload, and it cannot be un-folded anyway
+            logging.debug("aggregator: duplicate report from folded "
+                          "worker %d ignored", worker_idx)
+            self.flag_client_model_uploaded[worker_idx] = True
+            return
         self.model_dict[worker_idx] = model_params
         self.sample_num_dict[worker_idx] = sample_num
         self.flag_client_model_uploaded[worker_idx] = True
         if sample_num > 0:
             self._any_pos = True
         self.buffered_peak = max(self.buffered_peak, len(self.model_dict))
-        self._drain_ready()
+        if self._streaming:
+            self._drain_ready()
 
     def check_whether_all_receive(self) -> bool:
         if all(self.flag_client_model_uploaded):
@@ -147,6 +171,7 @@ class FedAvgAggregator:
             return True
         return False
 
+    # -- streaming fold ------------------------------------------------------
     def _fold_in(self, idx: int, weight=None) -> None:
         model = self.model_dict.pop(idx)
         w32 = np.float32(self.sample_num_dict.pop(idx)
@@ -183,7 +208,7 @@ class FedAvgAggregator:
         #: peak len(model_dict) this round (the agg_buffered_peak gauge)
         self.buffered_peak = 0
 
-    def aggregate(self):
+    def _close_streaming(self):
         """Drain the pending suffix in ascending worker order and
         normalize; resets the round."""
         if self._fold_count == 0 and not self.model_dict:
@@ -197,9 +222,46 @@ class FedAvgAggregator:
         self._reset_round()
         return out
 
+    # -- buffered close (custom aggregate_fn) ---------------------------------
+    def _close_buffered(self, idxs):
+        if not idxs:
+            raise ValueError("aggregate on an empty round: no reports")
+        models = [self.model_dict[i] for i in idxs]
+        weights = np.asarray([self.sample_num_dict[i] for i in idxs],
+                             np.float32)
+        if weights.sum() <= 0.0:
+            # every reporter had an empty shard: a uniform mix, not 0/0
+            weights = np.ones_like(weights)
+        device = next(iter(models[0].values())).device
+        out = self._aggregate_fn(pt.tree_stack(models),
+                                 torch.from_numpy(weights).to(device))
+        self._reset_round()
+        return out
+
+    def aggregate(self):
+        """Close the round over every worker; resets the round."""
+        if self._streaming:
+            return self._close_streaming()
+        return self._close_buffered(list(range(self.worker_num)))
+
+    def aggregate_available(self):
+        """The weighted mean over whichever workers reported this round,
+        then reset: the straggler-tolerant close. Equal to
+        :meth:`aggregate` when every worker reported."""
+        if self._streaming:
+            return self._close_streaming()
+        return self._close_buffered(sorted(self.model_dict))
+
     def reported_set(self) -> set:
         """Workers whose report is in hand for the open round."""
         return set(range(self._fold_next)) | set(self.model_dict)
+
+    def has_reported(self, worker_idx: int) -> bool:
+        return worker_idx < self._fold_next or worker_idx in self.model_dict
+
+    def received_count(self) -> int:
+        """Reports in hand for the open round."""
+        return self._fold_count + len(self.model_dict)
 
     def client_sampling(self, round_idx: int, client_num_in_total: int,
                         client_num_per_round: int) -> np.ndarray:
@@ -209,12 +271,22 @@ class FedAvgAggregator:
 
 class FedAvgServerManager(ServerManager):
     """Round-based cross-silo server with the strict all-received
-    barrier."""
+    barrier.
+
+    ``checkpoint_mgr`` (a ``utils.checkpoint.CheckpointManager``) saves
+    :meth:`_checkpoint_state` after every round, keyed by rounds
+    completed; with ``resume`` the server restores the latest one and
+    restarts the protocol at its round. Sampling and every random stream
+    derive from the round index, so the continuation is the uninterrupted
+    run's, bit for bit, when the downlink is not compressed (a resumed
+    federation starts without the silos' mirror, so its first broadcast is
+    full precision)."""
 
     def __init__(self, rank: int, size: int, com_manager,
                  aggregator: FedAvgAggregator, comm_round: int,
                  client_num_in_total: int, global_model,
-                 on_round_done=None, compression=None,
+                 on_round_done=None, checkpoint_mgr=None,
+                 resume: bool = False, compression=None,
                  timer: Optional[RoundTimer] = None):
         super().__init__(rank, size, com_manager)
         self._device_lock = _DEVICE_LOCK
@@ -227,6 +299,7 @@ class FedAvgServerManager(ServerManager):
         self.round_idx = 0
         self.on_round_done = on_round_done
         self.worker_num = size - 1
+        self.checkpoint_mgr = checkpoint_mgr
         self.round_timer = timer if timer is not None else RoundTimer()
         #: cumulative transport bytes already credited into the timer
         self._wire_credited_up = 0
@@ -243,11 +316,35 @@ class FedAvgServerManager(ServerManager):
         self._mirror_fp = None
         #: worker -> (held seq, held structure fp) from its last reply
         self._worker_base: Dict[int, tuple] = {}
+        if checkpoint_mgr is not None and resume:
+            restored = checkpoint_mgr.restore_latest(
+                self._checkpoint_state())
+            if restored:
+                state, meta = restored
+                self._load_state(state)
+                self.round_idx = int(meta["round_idx"])
+
+    # the FedOpt server extends the round state with its optimizer state
+    def _checkpoint_state(self):
+        return {"variables": self.global_model}
+
+    def _load_state(self, state) -> None:
+        self.global_model = state["variables"]
+
+    def _aggregate_round(self):
+        """Close the round: the sample-weighted average; FedOpt steps its
+        server optimizer on it."""
+        return self.aggregator.aggregate()
 
     def send_init_msg(self) -> None:
+        if self.round_idx >= self.comm_round:
+            # resumed from the checkpoint of a finished run
+            self._finish_federation()
+            return
         idxs = self.aggregator.client_sampling(
             self.round_idx, self.client_num_in_total, self.worker_num)
-        # the mirror is unset, so the first broadcast is full precision
+        # the mirror is unset, so the first broadcast (of a resumed run
+        # too) is full precision
         self._broadcast_model(MSG_TYPE_S2C_INIT_CONFIG, idxs)
 
     def register_message_receive_handlers(self) -> None:
@@ -384,7 +481,7 @@ class FedAvgServerManager(ServerManager):
         buffered_peak = self.aggregator.buffered_peak
         t0 = time.monotonic()
         with self._device_lock, tm.phase("fold"):
-            self.global_model = self.aggregator.aggregate()
+            self.global_model = self._aggregate_round()
             synchronize(self.device)
         tm.gauge("agg_fold_ms", (time.monotonic() - t0) * 1e3)
         tm.gauge("agg_buffered_peak", buffered_peak)
@@ -395,12 +492,67 @@ class FedAvgServerManager(ServerManager):
         tm.end_round(self.round_idx, extra={
             "cohort": self._round_cohort, "reported": reported})
         self.round_idx += 1
+        if self.checkpoint_mgr is not None:
+            with self._device_lock, tm.phase("checkpoint"):
+                self.checkpoint_mgr.save(self.round_idx,
+                                         self._checkpoint_state())
         if self.round_idx == self.comm_round:
             self._finish_federation()
             return
         idxs = self.aggregator.client_sampling(
             self.round_idx, self.client_num_in_total, self.worker_num)
         self._broadcast_model(MSG_TYPE_S2C_SYNC_MODEL, idxs)
+
+
+class FedOptServerManager(FedAvgServerManager):
+    """Cross-silo FedOpt: the round closes with a step of a persistent
+    server optimizer on the pseudo-gradient ``w_old - w_avg`` instead of
+    installing the average (reference
+    fedml_api/distributed/fedopt/FedOptAggregator.py:70-123; JAX
+    ``FedOptServerManager``). ``param_names`` are the module's parameters
+    (``named_parameters`` order), the tensors the optimizer steps; the
+    other entries of the state dict (BN statistics) keep the plain
+    average. The silos are unchanged. The optimizer state joins the
+    checkpointed round state."""
+
+    def __init__(self, *args, param_names, server_optimizer: str = "adam",
+                 server_lr: float = 1e-3, server_momentum: float = 0.0,
+                 **kw):
+        from fedml_tpu_torch.algorithms.fedopt import get_server_optimizer
+
+        global_model = args[6] if len(args) > 6 else kw["global_model"]
+        opt_kw = {}
+        if server_optimizer == "sgd" and server_momentum:
+            opt_kw["momentum"] = server_momentum
+        self._server_tx = get_server_optimizer(server_optimizer, server_lr,
+                                               **opt_kw)
+        self._param_names = list(param_names)
+        with _DEVICE_LOCK:
+            self.server_opt_state = self._server_tx.init(
+                [global_model[n] for n in self._param_names])
+        # super() last: a resume overwrites the fresh optimizer state
+        # through _load_state
+        super().__init__(*args, **kw)
+
+    def _checkpoint_state(self):
+        return {"variables": self.global_model,
+                "server_opt": self.server_opt_state}
+
+    def _load_state(self, state) -> None:
+        self.global_model = state["variables"]
+        self.server_opt_state = state["server_opt"]
+
+    def _aggregate_round(self):
+        avg = super()._aggregate_round()
+        params = [self.global_model[n] for n in self._param_names]
+        pseudo_grad = torch._foreach_sub(
+            params, [avg[n] for n in self._param_names])
+        updates, self.server_opt_state = self._server_tx.update(
+            pseudo_grad, self.server_opt_state, params)
+        new = dict(avg)  # buffers keep the plain average
+        new.update(zip(self._param_names,
+                       torch._foreach_add(params, updates)))
+        return new
 
 
 class FedAvgClientManager(ClientManager):
@@ -412,6 +564,7 @@ class FedAvgClientManager(ClientManager):
                  dataset: FederatedDataset, module, task: str,
                  train_cfg: TrainConfig, seed: int = 0,
                  compress: bool = False, compression=None,
+                 state_dir: Optional[str] = None, resume: bool = False,
                  prefetch_depth: int = 2, device="cuda",
                  timer: Optional[RoundTimer] = None):
         super().__init__(rank, size, com_manager)
@@ -432,8 +585,19 @@ class FedAvgClientManager(ClientManager):
         self._held = None
         self._held_seq = -1
         #: uplink error-feedback residual (flat f32, on the device): the
-        #: mass top-k did NOT send, added to the next round's delta
+        #: mass top-k did NOT send, added to the next round's delta. Saved
+        #: after every round under ``state_dir`` (top-k policies only), so
+        #: a resumed silo keeps its error-feedback trajectory.
         self._residual = None
+        self._resume_residual = bool(resume)
+        self._state_ckpt = None
+        if state_dir and self._policy.uplink_topk:
+            from fedml_tpu_torch.state.residuals import SiloResidualStore
+            # async write-back: the flush rides a writer thread off the
+            # reply's critical path; FINISH closes it (the durability
+            # barrier)
+            self._state_ckpt = SiloResidualStore(state_dir,
+                                                 async_writeback=True)
         # the server's sampling is the deterministic shared stream, so this
         # silo can pack the client it will be handed next round while the
         # current round trains; keys are (round, client), so a miss packs
@@ -477,6 +641,9 @@ class FedAvgClientManager(ClientManager):
     def _handle_finish(self, msg: Message) -> None:
         if self._prefetch is not None:
             self._prefetch.close()
+        if self._state_ckpt is not None:
+            # every save of this run is on disk before the silo stops
+            self._state_ckpt.close()
         self.finish()
 
     def _apply_broadcast(self, msg: Message):
@@ -502,6 +669,25 @@ class FedAvgClientManager(ClientManager):
         if seq is not None:
             self._held_seq = int(seq)
         return variables
+
+    def _uplink_residual(self, round_idx: int, variables):
+        """The EF residual entering this round. On resume it is restored
+        once, from the residual saved for the server's resumed round;
+        absent state starts error feedback from zero (it re-loses the
+        pending mass, it never corrupts)."""
+        if self._resume_residual:
+            self._resume_residual = False
+            if self._state_ckpt is not None:
+                restored = self._state_ckpt.load(round_idx,
+                                                 pt.tree_size(variables))
+                if restored is not None:
+                    self._residual = torch.from_numpy(restored).to(
+                        self.device)
+                else:
+                    logging.info("silo%d: no residual checkpoint for round "
+                                 "%d; starting error feedback from zero",
+                                 self.rank, round_idx)
+        return self._residual
 
     def handle_message_init(self, msg: Message) -> None:
         tm = self._timer
@@ -538,14 +724,21 @@ class FedAvgClientManager(ClientManager):
                 if self._policy.enabled:
                     gen = make_generator(derive_seed(
                         UPLINK_SEED_TAG, round_idx, self.rank), dev)
-                    residual = (self._residual if self._policy.uplink_topk
-                                else None)
+                    residual = (self._uplink_residual(round_idx, variables)
+                                if self._policy.uplink_topk else None)
                     payload, new_residual = compress_for_policy(
                         new_vars, variables, residual, gen, self._policy)
                     if self._policy.uplink_topk:
                         self._residual = new_residual
                 else:
                     payload = to_numpy(new_vars)
+            # a copy: the store's writer thread reads it later
+            saved = (self._residual.cpu().numpy().copy()
+                     if self._state_ckpt is not None
+                     and self._residual is not None else None)
+        if saved is not None:
+            # keyed by rounds completed, as the server's model checkpoint
+            self._state_ckpt.save(round_idx + 1, saved)
         reply.add(MSG_ARG_KEY_MODEL_PARAMS, payload)
         n_i = float(self.dataset.train_data_local_num_dict[client_idx])
         reply.add(MSG_ARG_KEY_NUM_SAMPLES, n_i)
@@ -559,13 +752,9 @@ class FedAvgClientManager(ClientManager):
 #: options of the JAX launchers that the port does not run yet, with the
 #: ROADMAP item that ports each; any value other than the default raises
 _NOT_PORTED = {
-    "checkpoint_dir": "Slice D item 22a (the silo residual store, resume)",
-    "resume": "Slice D item 22a (the silo residual store, resume)",
-    "token": "Slice D item 22b (transports)",
     "round_deadline_s": "Slice D item 22c (deadline/quorum, fault tolerance)",
     "heartbeat_s": "Slice D item 22c (deadline/quorum, fault tolerance)",
     "fault_plan": "Slice D item 22c (deadline/quorum, fault tolerance)",
-    "server_optimizer": "Slice D item 22d (the FedOpt cross-silo server)",
     "server_checkpoint_dir": "Slice D item 23 (control plane)",
     "checkpoint_sync": "Slice D item 23 (control plane)",
     "pace_steering": "Slice D item 23 (control plane)",
@@ -643,25 +832,48 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
     holds every model; ``init_variables`` is a state dict to start from in
     place of the seeded initialization.
 
+    ``backend`` names a transport of ``comm/registry.py`` ("INPROC",
+    "TCP", "GRPC", "GRPC_PROTO", "MQTT", "ROUTED"), reached through
+    ``addresses`` and, for ROUTED, the shared-secret ``token``.
+    ``server_optimizer`` (adam, sgd, ...; ``server_lr``,
+    ``server_momentum``) closes each round with a FedOpt step
+    (:class:`FedOptServerManager`). ``checkpoint_dir`` saves the round
+    state after every round (the server's model and optimizer state, and
+    each silo's EF residual under ``checkpoint_dir/silo_<rank>``);
+    ``resume`` restarts from the latest checkpoint.
+
     The signature is the JAX package's; the options the port does not run
     yet raise ``NotImplementedError`` when set, the server's here and the
     silos' and transport's in :func:`launch_federation` (``min_quorum_frac``,
-    ``max_deadline_extensions``, ``server_lr``, ``server_momentum``,
-    ``serve_staleness_rounds`` and ``wan_round_s`` only take effect with
-    one of those, so they are accepted and unused)."""
+    ``max_deadline_extensions``, ``serve_staleness_rounds`` and
+    ``wan_round_s`` only take effect with one of those, so they are
+    accepted and unused)."""
     _refuse_not_ported(
-        round_deadline_s=round_deadline_s, server_optimizer=server_optimizer,
+        round_deadline_s=round_deadline_s,
         server_checkpoint_dir=server_checkpoint_dir,
         pace_steering=pace_steering, join_rate_limit=join_rate_limit,
         wan_trace=wan_trace, wan_profiles=wan_profiles)
     policy = resolve_compression(compression, compress=compress)
+    checkpoint_mgr = None
+    if checkpoint_dir:
+        from fedml_tpu_torch.utils.checkpoint import CheckpointManager
+        checkpoint_mgr = CheckpointManager(checkpoint_dir)
 
     def server_factory(size, server_com, aggregator, global_model,
                        on_round_done):
+        common = dict(on_round_done=on_round_done,
+                      checkpoint_mgr=checkpoint_mgr, resume=resume,
+                      compression=policy)
+        if server_optimizer:
+            return FedOptServerManager(
+                0, size, server_com, aggregator, comm_round,
+                dataset.client_num, global_model,
+                param_names=[n for n, _ in module.named_parameters()],
+                server_optimizer=server_optimizer, server_lr=server_lr,
+                server_momentum=server_momentum, **common)
         return FedAvgServerManager(0, size, server_com, aggregator,
                                    comm_round, dataset.client_num,
-                                   global_model, on_round_done=on_round_done,
-                                   compression=policy)
+                                   global_model, **common)
 
     model, history, _ = launch_federation(
         dataset, module, task, worker_num, train_cfg, server_factory,
@@ -754,9 +966,14 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     defaults ``raise_on_timeout`` to True, where the JAX package returns
     the partial history after logging the error. ``wire_codec=False`` (the
     JAX package's object hand-off, which ships no frame and counts no
-    bytes) is not ported: every message crosses as an encoded frame."""
+    bytes) is not ported: every message crosses as an encoded frame.
+
+    Every rank's endpoint comes from ``create_comm_manager(backend, rank,
+    size, addresses=, token=)``; ``client_state_dir`` holds each silo's
+    residual store (``silo_<rank>``), restored once on ``resume``. The
+    transport counters (``retries``, ``dedup_drops``, ``conn_errors``)
+    of every endpoint are summed into the timer as ``ft_*``."""
     _refuse_not_ported(
-        checkpoint_dir=client_state_dir, resume=resume, token=token,
         checkpoint_sync=state_sync, heartbeat_s=heartbeat_s,
         fault_plan=fault_plan, obs_dir=obs_dir, job_id=job_id,
         comm_factory=comm_factory, device_gate=device_gate,
@@ -765,17 +982,23 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
         raise NotImplementedError(
             "wire_codec=False (the object hand-off) is not ported: the "
             "in-process router always ships encoded frames")
-    if addresses is not None:
-        raise NotImplementedError(
-            "addresses (the socket transports) are not ported yet: ROADMAP "
-            "Queue 1, Slice D item 22b (transports)")
     train_cfg = train_cfg or TrainConfig()
     dev = resolve_device(device)
     policy = resolve_compression(compression, compress=compress)
     size = worker_num + 1
     router = InProcRouter() if backend.upper() in ("INPROC", "MPI") else None
-    server_com = create_comm_manager(backend, 0, size, router=router)
     timer = timer if timer is not None else RoundTimer()
+    coms, clients = [], []
+
+    def endpoint(rank):
+        com = create_comm_manager(backend, rank, size, router=router,
+                                  addresses=addresses, token=token)
+        coms.append(com)
+        return com
+
+    def stop_all():
+        for com in coms:
+            com.stop_receive_message()
 
     global_model = _initial_model(module, seed, dev, init_variables)
     module.to(dev)
@@ -804,48 +1027,43 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
                 logging.warning("round_record_hook failed for round %d",
                                 round_idx, exc_info=True)
 
-    aggregator = FedAvgAggregator(worker_num)
-    server = server_factory(size, server_com, aggregator, global_model,
-                            on_round_done)
-    server.round_timer = timer
-    clients, coms = [], [server_com]
-    for rank in range(1, size):
-        com = create_comm_manager(backend, rank, size, router=router)
-        coms.append(com)
-        clients.append(FedAvgClientManager(
-            rank, size, com, dataset, module, task, train_cfg, seed=seed,
-            compression=policy, prefetch_depth=prefetch_depth, device=dev,
-            timer=timer))
-
     errors: List[BaseException] = []
-
-    def stop_all():
-        for com in coms:
-            com.stop_receive_message()
-
-    threads = [threading.Thread(target=_actor(c.run, errors, stop_all),
-                                daemon=True, name=f"silo{c.rank}")
-               for c in clients]
-    server_thread = threading.Thread(
-        target=_actor(server.run, errors, stop_all), daemon=True,
-        name="server")
-    for t in threads:
-        t.start()
-    server_thread.start()
     try:
+        server = server_factory(size, endpoint(0), FedAvgAggregator(
+            worker_num), global_model, on_round_done)
+        server.round_timer = timer
+        for rank in range(1, size):
+            clients.append(FedAvgClientManager(
+                rank, size, endpoint(rank), dataset, module, task,
+                train_cfg, seed=seed, compression=policy,
+                state_dir=(os.path.join(client_state_dir, f"silo_{rank}")
+                           if client_state_dir else None),
+                resume=resume, prefetch_depth=prefetch_depth, device=dev,
+                timer=timer))
+        threads = [threading.Thread(target=_actor(c.run, errors, stop_all),
+                                    daemon=True, name=f"silo{c.rank}")
+                   for c in clients]
+        server_thread = threading.Thread(
+            target=_actor(server.run, errors, stop_all), daemon=True,
+            name="server")
+        for t in threads:
+            t.start()
+        server_thread.start()
         server.send_init_msg()
-    except BaseException:
+        server_thread.join(timeout=join_timeout_s)
+        timed_out = server_thread.is_alive()
+        if timed_out:
+            stop_all()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        # every exit (an endpoint that failed to construct, a raising
+        # actor, a timeout) releases every listener, connection and
+        # prefetch thread: an in-process relaunch must find its ports free
         stop_all()
-        raise
-    server_thread.join(timeout=join_timeout_s)
-    timed_out = server_thread.is_alive()
-    if timed_out:
-        stop_all()
-    for t in threads:
-        t.join(timeout=60)
-    for c in clients:
-        if c._prefetch is not None:
-            c._prefetch.close()
+        for c in clients:
+            if c._prefetch is not None:
+                c._prefetch.close()
     if errors:
         raise errors[0]
     if timed_out:
@@ -855,4 +1073,6 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
             raise RuntimeError(msg)
         logging.error("%s; returning the partial history", msg)
     server._credit_wire_bytes()
+    for key in ("retries", "dedup_drops", "conn_errors"):
+        timer.count(f"ft_{key}", sum(int(c.counters[key]) for c in coms))
     return server.global_model, history, server

@@ -64,6 +64,12 @@ class Message:
     def to_bytes(self) -> bytes:
         return serialization.dumps(self.msg_params)
 
+    def to_parts(self) -> list:
+        """The encoded frame as its constituent buffers (header and raw
+        leaf buffers) for the socket transports, which write them without
+        joining them into one contiguous copy."""
+        return serialization.dumps_parts(self.msg_params)
+
     @classmethod
     def from_bytes(cls, frame) -> "Message":
         msg = cls()

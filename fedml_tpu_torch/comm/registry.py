@@ -2,41 +2,75 @@
 switch (client_manager.py:22-35); the port's copy of
 ``fedml_tpu/comm/registry.py``.
 
-The port runs the in-process router ("INPROC", and "MPI", which the JAX
-package maps to it on one host). The socket transports raise and name
-their ROADMAP item.
+The chaos harness (``fault_plan``, the JAX package's comm/faults.py) is not
+ported yet and raises naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 from fedml_tpu_torch.comm.base import BaseCommunicationManager
 from fedml_tpu_torch.comm.inproc import InProcCommManager, InProcRouter
 
-#: backends of the JAX package that the port does not run yet
-NOT_PORTED = {
-    "TCP": "the TCP transport with reliable.py",
-    "GRPC": "the gRPC transport with reliable.py",
-    "GRPC_PROTO": "the gRPC transport with reliable.py",
-    "MQTT": "the MQTT transport",
-    "ROUTED": "the routed broker transport",
-    "BROKER": "the routed broker transport",
-}
 
+def create_comm_manager(
+        backend: str, rank: int, size: int,
+        router: Optional[InProcRouter] = None,
+        addresses: Optional[Dict[int, Tuple[str, int]]] = None,
+        wire_codec: bool = True,
+        token: Optional[bytes] = None,
+        fault_plan=None) -> BaseCommunicationManager:
+    """``backend``: "INPROC" (ranks are threads of one process over a
+    shared :class:`InProcRouter`; "MPI" is its alias on one host), "TCP"
+    (framed sockets, cross-host), "GRPC" (chunked client-streaming RPC),
+    "GRPC_PROTO" (the reference's proto wire and JSON codec), "MQTT"
+    (broker pub/sub with the reference topic scheme) or "ROUTED" ("BROKER":
+    dial-out frames through the native broker, native/router.cpp, with the
+    shared-secret ``token``). ``addresses`` is ``{rank: (host, port)}`` for
+    TCP and the gRPC pair, ``{"broker": (host, port)}`` for MQTT and
+    ``{"router": (host, port)}`` for ROUTED.
 
-def create_comm_manager(backend: str, rank: int, size: int,
-                        router: Optional[InProcRouter] = None
-                        ) -> BaseCommunicationManager:
-    """``backend``: "INPROC" (or its alias "MPI"): ranks are threads of
-    one process over a shared :class:`InProcRouter`."""
+    ``wire_codec=False`` (the JAX package's in-process object hand-off)
+    is refused: the in-process router always ships encoded frames, so the
+    wire bytes are always counted."""
+    if fault_plan:
+        raise NotImplementedError(
+            f"fault_plan={fault_plan!r} (the seeded chaos harness) is not "
+            "ported yet: ROADMAP Queue 1, Slice D item 22c (deadline/"
+            "quorum, fault tolerance)")
     key = backend.upper()
+    if key in ("ROUTED", "BROKER"):
+        if addresses is None or "router" not in addresses:
+            raise ValueError(
+                'ROUTED backend needs addresses={"router": (host, port)}')
+        from fedml_tpu_torch.comm.routed import RoutedCommManager
+        return RoutedCommManager(rank, addresses["router"], token=token)
     if key in ("INPROC", "MPI"):
+        if not wire_codec:
+            raise NotImplementedError(
+                "wire_codec=False (the object hand-off) is not ported: the "
+                "in-process router always ships encoded frames")
         if router is None:
             raise ValueError("INPROC backend needs a shared InProcRouter")
         return InProcCommManager(router, rank, size)
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} ({NOT_PORTED[key]}) is not ported yet: "
-            "ROADMAP Queue 1, Slice D item 22b (transports)")
+    if key in ("TCP", "GRPC", "GRPC_PROTO"):
+        if addresses is None:
+            raise ValueError(f"{key} backend needs {{rank: (host, port)}}")
+        if key == "TCP":
+            from fedml_tpu_torch.comm.tcp import TcpCommManager
+            return TcpCommManager(rank, addresses)
+        if key == "GRPC":
+            from fedml_tpu_torch.comm.grpc_backend import GrpcCommManager
+            return GrpcCommManager(rank, addresses)
+        from fedml_tpu_torch.comm.grpc_proto import ProtoGrpcCommManager
+        return ProtoGrpcCommManager(rank, addresses)
+    if key == "MQTT":
+        if addresses is None or "broker" not in addresses:
+            raise ValueError(
+                'MQTT backend needs addresses={"broker": (host, port)}')
+        from fedml_tpu_torch.comm.mqtt import MqttCommManager
+        host, port = addresses["broker"]
+        return MqttCommManager(host, port, client_id=rank,
+                               client_num=size - 1)
     raise ValueError(f"unknown backend: {backend!r}")

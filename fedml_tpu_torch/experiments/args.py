@@ -28,8 +28,9 @@ def add_federated_args(parser: argparse.ArgumentParser):
                                  "tcp", "grpc"],
                         help="simulation (FedAvgAPI) or the cross-silo "
                              "protocol over the in-process router (inproc; "
-                             "mpi is the same router); spmd, tcp and grpc "
-                             "are not ported yet and raise")
+                             "mpi is the same router) or loopback sockets "
+                             "(tcp, grpc: rank r on port 29500 + r); spmd "
+                             "is not ported yet and raises")
     parser.add_argument("--compression", type=str, default=None,
                         help="cross-silo wire policy: none | delta_int8 | "
                              "topk_ef | topk_ef_int8, optionally with a "
@@ -78,7 +79,12 @@ def add_federated_args(parser: argparse.ArgumentParser):
                         help="flight recorder (not ported yet: raises)")
     parser.add_argument("--use_wandb", action="store_true")
     parser.add_argument("--checkpoint_dir", type=str, default=None,
-                        help="round checkpoints (not ported yet: raises)")
+                        help="save the round state after every round (the "
+                             "host loop's model; the cross-silo server's "
+                             "model and each silo's EF residual)")
+    parser.add_argument("--resume", action="store_true",
+                        help="restart from the latest checkpoint in "
+                             "--checkpoint_dir")
     parser.add_argument("--ci", type=int, default=0,
                         help="1 = tiny smoke-run truncation (reference --ci)")
     return parser

@@ -17,7 +17,8 @@ fedgkt (``--epochs_client``, ``--epochs_server``, ``--alpha``,
 darts|gdas``, ``--arch_unrolled``, ``--arch_lr``,
 ``--nas_retrain_rounds``) on NHWC images, on ``--device`` (default
 ``cuda``; without a GPU and without ``--device cpu`` it raises).
-fedavg_async raises ``NotImplementedError`` naming its ROADMAP item, before
+``--checkpoint_dir`` / ``--resume`` reach fedavg and fedavg_cross_silo
+(``--backend inproc|tcp|grpc``). fedavg_async raises ``NotImplementedError`` naming its ROADMAP item, before
 any data is built.
 """
 
@@ -160,9 +161,8 @@ def _warn_unwired(args) -> None:
         logging.warning("--prefetch_depth is not wired for %r's custom "
                         "loop; ignoring %d", args.algo, args.prefetch_depth)
     if args.checkpoint_dir:
-        logging.warning("--checkpoint_dir is not wired for --algo %r (the "
-                        "JAX launcher wires it for fedavg and "
-                        "fedavg_cross_silo only); ignoring", args.algo)
+        logging.warning("--checkpoint_dir is only wired for --algo fedavg "
+                        "and fedavg_cross_silo; ignoring for %r", args.algo)
 
 
 def _refuse_unported(args) -> None:

@@ -1,0 +1,433 @@
+// fedml_tpu_torch native message router: a standalone cross-host broker for
+// the cross-silo path (a copy of the JAX package's native/router.cpp).
+//
+// Role: the reference delegates cross-host transport to mpi4py's C library
+// (fedml_core/distributed/communication/mpi/) or a prototype gRPC service
+// with hardcoded IPs (gRPC/grpc_comm_manager.py:51-56). Here the native
+// component is a star-topology frame router: every silo dials the broker
+// (works across NAT — silos need no inbound ports), identifies itself with a
+// HELLO carrying its rank, then exchanges length-prefixed binary frames
+// addressed by destination rank. Payloads are opaque (the Python side uses
+// the zero-copy pytree codec in fedml_tpu_torch/comm/serialization.py).
+//
+// Wire protocol (all integers little-endian):
+//   HELLO  (client -> router, once):  u32 magic 'FMLR'  u32 rank
+//   HELLO+AUTH (when a shared secret is configured):
+//                                     u32 magic 'FMLS'  u32 rank
+//                                     u32 token_len     token bytes
+//   DATA   (client -> router):        u32 dest_rank     u64 len   payload
+//   DATA   (router -> client):        u32 src_rank      u64 len   payload
+//
+// Security: a router started with a non-empty token rejects any HELLO that
+// does not carry the matching token (constant-time compare), closing the
+// hole where any host that can reach the port could claim an arbitrary rank
+// (including rank 0) and receive the broadcast model or inject updates.
+// The token authenticates rank claims only — payloads still cross the wire
+// in cleartext, so production deployments must run the broker behind TLS
+// termination (stunnel/envoy/nginx stream proxy) or on a trusted network.
+//
+// Frames to a rank that has not connected yet are buffered (bounded by
+// kMaxPendingBytes per rank) and flushed on its HELLO — so the federation
+// has no start-order constraints.
+//
+// Threading: one accept thread + one reader thread per connection. A frame
+// is forwarded under the destination's write mutex, so interleaving is
+// impossible and backpressure propagates naturally through TCP.
+//
+// Exposed as a C API (fedml_router_start/stop/...) consumed via ctypes from
+// fedml_tpu_torch/native/__init__.py.
+
+#include <arpa/inet.h>
+#include <netinet/in.h>
+#include <netinet/tcp.h>
+#include <sys/socket.h>
+#include <unistd.h>
+
+#include <atomic>
+#include <condition_variable>
+#include <cstdint>
+#include <cstring>
+#include <deque>
+#include <memory>
+#include <mutex>
+#include <new>
+#include <string>
+#include <thread>
+#include <unordered_map>
+#include <utility>
+#include <vector>
+
+namespace {
+
+constexpr uint32_t kMagic = 0x464d4c52;      // 'FMLR' (legacy, token-less)
+constexpr uint32_t kMagicAuth = 0x464d4c53;  // 'FMLS' (token follows)
+constexpr size_t kMaxPendingBytes = 1ull << 30;  // 1 GiB buffered per absent rank
+constexpr size_t kMaxFrameBytes = 4ull << 30;    // 4 GiB per frame
+constexpr uint32_t kMaxTokenLen = 4096;
+
+// Constant-time equality: timing must leak neither matching prefix length
+// nor the configured token's length, so iterate over the attacker-supplied
+// buffer (whose length the peer already knows), folding the secret in
+// cyclically.
+bool token_eq(const std::string& a, const char* b, size_t blen) {
+  unsigned diff = static_cast<unsigned>(a.size() ^ blen);
+  if (a.empty()) return blen == 0;
+  for (size_t i = 0; i < blen; ++i) {
+    diff |= static_cast<unsigned char>(a[i % a.size()]) ^
+            static_cast<unsigned char>(b[i]);
+  }
+  return diff == 0;
+}
+
+bool read_exact(int fd, void* buf, size_t n) {
+  auto* p = static_cast<char*>(buf);
+  while (n > 0) {
+    ssize_t r = ::recv(fd, p, n, 0);
+    if (r <= 0) return false;
+    p += r;
+    n -= static_cast<size_t>(r);
+  }
+  return true;
+}
+
+bool write_exact(int fd, const void* buf, size_t n) {
+  const auto* p = static_cast<const char*>(buf);
+  while (n > 0) {
+    ssize_t w = ::send(fd, p, n, MSG_NOSIGNAL);
+    if (w <= 0) return false;
+    p += w;
+    n -= static_cast<size_t>(w);
+  }
+  return true;
+}
+
+struct Frame {
+  uint32_t src;
+  std::vector<char> payload;
+};
+
+struct Client {
+  int fd = -1;
+  std::mutex write_mu;            // serializes router->client frames
+  std::atomic<bool> open{false};
+};
+
+// fd lifecycle discipline: the winner of open.exchange(false) calls
+// ::shutdown() only (unblocking the reader); ::close() is done exclusively
+// by the connection's own reader thread, under write_mu, after its read
+// loop exits. This guarantees no thread can be mid-recv/mid-send on an fd
+// when it is closed, so a reused fd number can never receive another
+// connection's bytes.
+
+class Router {
+ public:
+  Router() = default;
+
+  // Require this shared secret in every HELLO (call before Start).
+  // Length-delimited: binary tokens may contain NUL bytes.
+  void SetToken(const char* token, size_t len) {
+    token_.assign(token ? token : "", token ? len : 0);
+  }
+
+  // Returns the bound port (useful with port=0), or -1 on failure.
+  int Start(const char* host, int port) {
+    listen_fd_ = ::socket(AF_INET, SOCK_STREAM, 0);
+    if (listen_fd_ < 0) return -1;
+    int one = 1;
+    ::setsockopt(listen_fd_, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+    sockaddr_in addr{};
+    addr.sin_family = AF_INET;
+    addr.sin_port = htons(static_cast<uint16_t>(port));
+    if (::inet_pton(AF_INET, host, &addr.sin_addr) != 1) {
+      ::close(listen_fd_);
+      return -1;
+    }
+    if (::bind(listen_fd_, reinterpret_cast<sockaddr*>(&addr), sizeof(addr)) <
+            0 ||
+        ::listen(listen_fd_, 64) < 0) {
+      ::close(listen_fd_);
+      return -1;
+    }
+    socklen_t len = sizeof(addr);
+    ::getsockname(listen_fd_, reinterpret_cast<sockaddr*>(&addr), &len);
+    port_ = ntohs(addr.sin_port);
+    running_.store(true);
+    accept_thread_ = std::thread([this] { AcceptLoop(); });
+    return port_;
+  }
+
+  void Stop() {
+    if (!running_.exchange(false)) return;
+    ::shutdown(listen_fd_, SHUT_RDWR);
+    ::close(listen_fd_);
+    // join the acceptor first so no new reader threads can start, then
+    // unblock every reader and wait for all of them to drain
+    if (accept_thread_.joinable()) accept_thread_.join();
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      for (auto& [rank, c] : clients_) {
+        if (c->open.exchange(false)) ::shutdown(c->fd, SHUT_RDWR);
+      }
+    }
+    std::unique_lock<std::mutex> lk(readers_mu_);
+    readers_cv_.wait(lk, [this] { return active_readers_ == 0; });
+  }
+
+  int port() const { return port_; }
+  uint64_t frames_routed() const { return frames_routed_.load(); }
+  uint64_t bytes_routed() const { return bytes_routed_.load(); }
+  int connected_ranks() const {
+    std::lock_guard<std::mutex> lk(mu_);
+    int n = 0;
+    for (auto& [rank, c] : clients_) n += c->open.load() ? 1 : 0;
+    return n;
+  }
+
+  ~Router() { Stop(); }
+
+ private:
+  void AcceptLoop() {
+    while (running_.load()) {
+      int fd = ::accept(listen_fd_, nullptr, nullptr);
+      if (fd < 0) break;  // listener closed by Stop()
+      int one = 1;
+      ::setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+      {
+        std::lock_guard<std::mutex> lk(readers_mu_);
+        ++active_readers_;
+      }
+      // detached: reconnecting silos would otherwise accumulate one
+      // never-joined std::thread per connection until Stop()
+      std::thread([this, fd] {
+        ServeConnection(fd);
+        std::lock_guard<std::mutex> lk(readers_mu_);
+        if (--active_readers_ == 0) readers_cv_.notify_all();
+      }).detach();
+    }
+  }
+
+  void ServeConnection(int fd) {
+    // HELLO must arrive promptly: an untracked half-open connection would
+    // otherwise block Stop() on this thread's join forever
+    timeval hello_timeout{10, 0};
+    ::setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &hello_timeout,
+                 sizeof(hello_timeout));
+    uint32_t magic = 0, rank = 0;
+    if (!read_exact(fd, &magic, 4) ||
+        (magic != kMagic && magic != kMagicAuth) ||
+        !read_exact(fd, &rank, 4)) {
+      ::close(fd);
+      return;
+    }
+    if (magic == kMagicAuth) {
+      uint32_t tlen = 0;
+      if (!read_exact(fd, &tlen, 4) || tlen > kMaxTokenLen) {
+        ::close(fd);
+        return;
+      }
+      std::vector<char> tok(tlen);
+      if (tlen > 0 && !read_exact(fd, tok.data(), tlen)) {
+        ::close(fd);
+        return;
+      }
+      if (!token_eq(token_, tok.data(), tok.size())) {
+        ::close(fd);
+        return;
+      }
+    } else if (!token_.empty()) {
+      // token required but the peer sent a legacy HELLO: reject
+      ::close(fd);
+      return;
+    }
+    timeval no_timeout{0, 0};
+    ::setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &no_timeout,
+                 sizeof(no_timeout));
+    std::shared_ptr<Client> self;
+    std::deque<Frame> undelivered;
+    {
+      // registration and backlog flush happen with write_mu held, so a
+      // frame routed concurrently by a sender's reader (which sees
+      // open==true the instant it is stored) cannot overtake the buffered
+      // frames — per-sender FIFO is preserved across the reconnect
+      std::unique_lock<std::mutex> lk(mu_);
+      auto& slot = clients_[rank];
+      if (!slot) slot = std::make_shared<Client>();
+      if (slot->open.load()) {  // duplicate rank: refuse the newcomer
+        lk.unlock();
+        ::close(fd);
+        return;
+      }
+      self = slot;
+      std::lock_guard<std::mutex> wlk(self->write_mu);
+      self->fd = fd;
+      self->open.store(true);
+      if (!running_.load()) {
+        // Stop() swept the open clients before this registration (both
+        // hold mu_, and Stop() clears running_ first): shut this one down
+        // here, or its reader blocks in recv and Stop() waits forever.
+        // (A fix of the port's copy; the JAX package's broker has the
+        // race.)
+        ::shutdown(fd, SHUT_RDWR);
+      }
+      std::deque<Frame> backlog;
+      auto it = pending_.find(rank);
+      if (it != pending_.end()) {
+        backlog.swap(it->second.frames);
+        pending_.erase(it);
+      }
+      lk.unlock();
+      while (!backlog.empty()) {
+        if (!DeliverLocked(*self, backlog.front().src,
+                           backlog.front().payload)) {
+          undelivered.swap(backlog);  // connection died during the flush
+          break;
+        }
+        backlog.pop_front();
+      }
+    }
+    if (!undelivered.empty()) {
+      // put what the dead connection never received back at the head of
+      // the queue for the next reconnect (write_mu released: mu_ must
+      // never be acquired while holding a write_mu)
+      std::lock_guard<std::mutex> lk(mu_);
+      auto& q = pending_[rank];
+      for (auto it = undelivered.rbegin(); it != undelivered.rend(); ++it) {
+        q.bytes += it->payload.size();
+        q.frames.push_front(std::move(*it));
+      }
+    }
+
+    // read loop: route every inbound frame
+    for (;;) {
+      uint32_t dest = 0;
+      uint64_t len = 0;
+      if (!read_exact(fd, &dest, 4) || !read_exact(fd, &len, 8) ||
+          len > kMaxFrameBytes) {
+        break;
+      }
+      std::vector<char> payload;
+      try {
+        payload.resize(len);
+      } catch (const std::bad_alloc&) {
+        break;  // oversized claim: drop this connection, not the broker
+      }
+      if (len > 0 && !read_exact(fd, payload.data(), len)) break;
+      if (!Route(rank, dest, std::move(payload))) break;
+    }
+    self->open.exchange(false);
+    ::shutdown(fd, SHUT_RDWR);
+    // serialize against any in-flight Deliver before the fd number can be
+    // reused by a future accept
+    std::lock_guard<std::mutex> wlk(self->write_mu);
+    ::close(fd);
+  }
+
+  // Returns false when the frame had to be dropped (pending overflow) —
+  // the caller then drops the sender's connection so the failure is
+  // visible instead of the federation hanging on a silently lost message.
+  // A frame whose destination disconnects mid-delivery is requeued into
+  // pending_ (the destination's inbound stream restarts fresh on
+  // reconnect, so redelivering the whole frame is safe).
+  bool Route(uint32_t src, uint32_t dest, std::vector<char> payload) {
+    for (;;) {
+      std::shared_ptr<Client> target;
+      {
+        std::lock_guard<std::mutex> lk(mu_);
+        auto it = clients_.find(dest);
+        if (it != clients_.end() && it->second->open.load()) {
+          target = it->second;
+        } else {
+          auto& q = pending_[dest];
+          if (q.bytes + payload.size() > kMaxPendingBytes) return false;
+          q.bytes += payload.size();
+          q.frames.push_back(Frame{src, std::move(payload)});
+          return true;
+        }
+      }
+      std::lock_guard<std::mutex> lk(target->write_mu);
+      if (DeliverLocked(*target, src, payload)) return true;
+      // destination died mid-flight: loop — it is now closed (requeue into
+      // pending_) or already reconnected (retry delivery)
+    }
+  }
+
+  // Caller must hold c.write_mu. Returns false if the frame was NOT
+  // delivered (connection closed or write failed).
+  bool DeliverLocked(Client& c, uint32_t src,
+                     const std::vector<char>& payload) {
+    uint64_t len = payload.size();
+    if (!c.open.load()) return false;
+    if (!write_exact(c.fd, &src, 4) || !write_exact(c.fd, &len, 8) ||
+        (len > 0 && !write_exact(c.fd, payload.data(), len))) {
+      if (c.open.exchange(false)) ::shutdown(c.fd, SHUT_RDWR);
+      return false;
+    }
+    frames_routed_.fetch_add(1);
+    bytes_routed_.fetch_add(len);
+    return true;
+  }
+
+  struct PendingQueue {
+    size_t bytes = 0;
+    std::deque<Frame> frames;
+  };
+
+  std::string token_;  // empty = open (legacy HELLO accepted)
+  int listen_fd_ = -1;
+  int port_ = -1;
+  std::atomic<bool> running_{false};
+  std::thread accept_thread_;
+  mutable std::mutex mu_;  // guards clients_ and pending_
+  std::unordered_map<uint32_t, std::shared_ptr<Client>> clients_;
+  std::unordered_map<uint32_t, PendingQueue> pending_;
+  std::mutex readers_mu_;  // with readers_cv_: Stop() waits for readers
+  std::condition_variable readers_cv_;
+  int active_readers_ = 0;
+  std::atomic<uint64_t> frames_routed_{0};
+  std::atomic<uint64_t> bytes_routed_{0};
+};
+
+}  // namespace
+
+extern "C" {
+
+// token may be null/zero-length for an open (unauthenticated) router; a
+// non-empty token makes every HELLO carry-and-match it ('FMLS' form).
+// token_len is explicit so binary secrets with NUL bytes survive the FFI.
+void* fedml_router_start(const char* host, int port, const char* token,
+                         int token_len, int* out_port) {
+  auto* r = new Router();
+  r->SetToken(token, token_len > 0 ? static_cast<size_t>(token_len) : 0);
+  int bound = r->Start(host, port);
+  if (bound < 0) {
+    delete r;
+    return nullptr;
+  }
+  if (out_port) *out_port = bound;
+  return r;
+}
+
+void fedml_router_stop(void* handle) {
+  auto* r = static_cast<Router*>(handle);
+  if (!r) return;
+  r->Stop();
+  delete r;
+}
+
+int fedml_router_port(void* handle) {
+  return handle ? static_cast<Router*>(handle)->port() : -1;
+}
+
+unsigned long long fedml_router_frames_routed(void* handle) {
+  return handle ? static_cast<Router*>(handle)->frames_routed() : 0;
+}
+
+unsigned long long fedml_router_bytes_routed(void* handle) {
+  return handle ? static_cast<Router*>(handle)->bytes_routed() : 0;
+}
+
+int fedml_router_connected_ranks(void* handle) {
+  return handle ? static_cast<Router*>(handle)->connected_ranks() : 0;
+}
+
+}  // extern "C"

@@ -1,1 +1,2 @@
-"""Tracing, metrics, device selection and weight conversion."""
+"""Tracing, metrics, device selection, weight conversion, round
+checkpoints and the federation error context."""

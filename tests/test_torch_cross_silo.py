@@ -303,9 +303,8 @@ def test_aggregator_fold_is_arrival_order_invariant_and_keeps_signed_zero():
 
 
 NOT_PORTED = [
-    ("checkpoint_dir", "/tmp/x"), ("resume", True), ("token", b"t"),
     ("round_deadline_s", 1.0), ("heartbeat_s", 0.5), ("fault_plan", "drop"),
-    ("server_optimizer", "adam"), ("server_checkpoint_dir", "/tmp/x"),
+    ("server_checkpoint_dir", "/tmp/x"),
     ("checkpoint_sync", True), ("pace_steering", True),
     ("join_rate_limit", 2.0), ("obs_dir", "/tmp/x"), ("job_id", "j"),
     ("serve_port", 8000), ("serving", object()), ("wan_trace", "t"),
@@ -318,6 +317,42 @@ def test_unported_options_raise_and_name_their_item(name, value):
     ds = make_blob_federated(**BLOB)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cs.run_fedavg_cross_silo(ds, _lr(ds), device="cpu", **{name: value})
+
+
+@pytest.mark.parametrize("name", ["checkpoint_dir", "resume", "token",
+                                  "server_optimizer"])
+def test_formerly_refused_options_now_run(name, tmp_path):
+    """The options the port ran without before: round checkpoints, resume,
+    the routed transport's token and the FedOpt server."""
+    from fedml_tpu_torch import native
+    ds = make_blob_federated(**BLOB)
+    run = dict(worker_num=2, comm_round=1, train_cfg=TrainConfig(**TRAIN),
+               device="cpu", join_timeout_s=60, compression="topk_ef")
+    plain, _ = cs.run_fedavg_cross_silo(ds, _lr(ds), **run)
+    if name == "checkpoint_dir":
+        final, _ = cs.run_fedavg_cross_silo(ds, _lr(ds), checkpoint_dir=str(
+            tmp_path), **run)
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            "round_00000001", "round_00000001.json", "silo_1", "silo_2"]
+    elif name == "resume":
+        cs.run_fedavg_cross_silo(ds, _lr(ds), checkpoint_dir=str(tmp_path),
+                                 **run)
+        final, hist = cs.run_fedavg_cross_silo(
+            ds, _lr(ds), checkpoint_dir=str(tmp_path), resume=True, **run)
+        assert hist == []  # the checkpoint's run had finished
+    elif name == "token":
+        with native.NativeRouter(token=b"t") as router:
+            final, _ = cs.run_fedavg_cross_silo(
+                ds, _lr(ds), backend="ROUTED", token=b"t",
+                addresses={"router": ("127.0.0.1", router.port)}, **run)
+    else:
+        # one round of server SGD at lr 1 lands on FedAvg's average
+        final, _ = cs.run_fedavg_cross_silo(ds, _lr(ds),
+                                            server_optimizer="sgd",
+                                            server_lr=1.0, **run)
+    atol = 1e-6 if name == "server_optimizer" else 0.0
+    for k in plain:
+        torch.testing.assert_close(final[k], plain[k], rtol=0, atol=atol)
 
 
 def test_object_hand_off_is_not_ported():
@@ -343,9 +378,12 @@ def test_a_federation_past_its_join_timeout_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("backend", ["TCP", "GRPC", "MQTT"])
-def test_socket_transports_raise(backend):
+def test_socket_transports_need_addresses(backend):
+    """The socket transports run (tests/test_torch_transports.py) once
+    they are given addresses; without, they refuse before any endpoint
+    exists."""
     ds = make_blob_federated(**BLOB)
-    with pytest.raises(NotImplementedError, match="22b"):
+    with pytest.raises(ValueError, match="needs"):
         cs.run_fedavg_cross_silo(ds, _lr(ds), device="cpu", backend=backend)
 
 
@@ -386,8 +424,38 @@ def test_cli_runs_the_cross_silo_backend_on_the_cpu(tmp_path):
     assert summary["phase_train_ms"] > 0
 
 
-@pytest.mark.parametrize("backend", ["tcp", "grpc", "spmd"])
+@pytest.mark.parametrize("backend", ["spmd"])
 def test_cli_unported_backends_raise(backend, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_fedavg.main(["--backend", backend, "--device", "cpu",
                           "--run_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("backend", ["tcp", "grpc"])
+def test_cli_runs_the_socket_backends(backend, tmp_path, monkeypatch):
+    """``--backend tcp|grpc`` on the CLI's fixed loopback ports (29500 +
+    rank, the JAX CLI's map; no other test binds them), ending on the
+    in-process router's model; the join is cut to 60 s so a wedged run
+    fails fast."""
+    import functools
+    run = cs.run_fedavg_cross_silo
+    monkeypatch.setattr(cs, "run_fedavg_cross_silo",
+                        functools.partial(run, join_timeout_s=60))
+    finals = {}
+    for name in ("inproc", backend):
+        seen = []
+        monkeypatch.setattr(cs, "run_fedavg_cross_silo", functools.partial(
+            lambda *a, **kw: seen.append(run(*a, **kw)) or seen[-1],
+            join_timeout_s=60))
+        final = main_fedavg.main([
+            "--backend", name, "--device", "cpu", "--dataset", "blob",
+            "--client_num_in_total", "6", "--client_num_per_round", "3",
+            "--comm_round", "2", "--batch_size", "16", "--lr", "0.1",
+            "--compression", "topk_ef_int8:0.1",
+            "--run_dir", str(tmp_path / name)])
+        assert final["round"] == 1
+        finals[name] = seen[0][0]
+    for k in finals["inproc"]:
+        assert torch.equal(finals[backend][k], finals["inproc"][k]), k
+    summary = read_metrics(str(tmp_path / backend))[-1]
+    assert summary["comm_bytes_up"] > 0 and summary["comm_bytes_down"] > 0

@@ -128,8 +128,8 @@ def test_unported_algo_names_its_item(algo, tmp_path):
 @pytest.mark.parametrize("argv, err, match", [
     (["--algo", "fedavg", "--backend", "spmd"], NotImplementedError,
      "item 26"),
-    (["--algo", "fedavg", "--checkpoint_dir", "ck"], NotImplementedError,
-     "item 24"),
+    (["--algo", "fedavg", "--checkpoint_dir", "ck", "--fused_rounds", "2"],
+     ValueError, "fused"),
     (["--algo", "fedavg_cross_silo", "--fused_rounds", "2"], ValueError,
      "fused_rounds")])
 def test_unported_flags_raise_before_anything_is_built(argv, err, match,

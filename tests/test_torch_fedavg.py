@@ -282,8 +282,7 @@ def test_main_runs_two_rounds_on_blob_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--backend", "spmd"], ["--checkpoint_dir", "ckpt"],
-    ["--obs_dir", "obs"]])
+    ["--backend", "spmd"], ["--obs_dir", "obs"]])
 def test_unported_options_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_fedavg.main(["--device", "cpu", "--client_num_in_total", "4",

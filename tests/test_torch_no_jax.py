@@ -81,6 +81,41 @@ _, hist = run_fedavg_cross_silo(
     bds, create_model("lr", bds.class_num, input_shape=(20,)), worker_num=2,
     comm_round=1, train_cfg=TrainConfig(batch_size=16, lr=0.1),
     compression="topk_ef_int8:0.1", device="cpu")
+# the same over loopback TCP with a FedOpt server, saving the round state
+# (the server's and each silo's residual) and resuming it, and the routed
+# broker built from the port's own router.cpp
+import errno, socket, tempfile
+from fedml_tpu_torch.native import NativeRouter
+ckpt = tempfile.mkdtemp(dir=sys.argv[1])
+silo = dict(worker_num=2, train_cfg=TrainConfig(batch_size=16, lr=0.1),
+            compression="topk_ef_int8:0.1", device="cpu",
+            checkpoint_dir=ckpt, server_optimizer="adam", join_timeout_s=60)
+for attempt in range(3):  # free ports may be taken before they are bound
+    socks = [socket.socket() for _ in range(3)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    addresses = {r: s.getsockname() for r, s in enumerate(socks)}
+    for s in socks:
+        s.close()
+    try:
+        run_fedavg_cross_silo(bds, create_model("lr", bds.class_num,
+                                                input_shape=(20,)),
+                              comm_round=1, backend="TCP",
+                              addresses=addresses, **silo)
+        break
+    except OSError as exc:
+        if exc.errno != errno.EADDRINUSE or attempt == 2:
+            raise
+_, resumed = run_fedavg_cross_silo(
+    bds, create_model("lr", bds.class_num, input_shape=(20,)), comm_round=2,
+    resume=True, **silo)
+with NativeRouter(token=b"t") as router:
+    _, routed = run_fedavg_cross_silo(
+        bds, create_model("lr", bds.class_num, input_shape=(20,)),
+        worker_num=2, comm_round=1, backend="ROUTED", token=b"t",
+        addresses={"router": ("127.0.0.1", router.port)}, device="cpu",
+        train_cfg=TrainConfig(batch_size=16, lr=0.1))
+hist = hist + resumed + routed
 # the rest of the FedAvg family through fed_launch
 from fedml_tpu_torch.experiments import fed_launch
 algos = {}
@@ -135,7 +170,7 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["round"] == 0
     assert out["lm_tokens"] > 0
-    assert out["silo_rounds"] == [0]
+    assert out["silo_rounds"] == [0, 1, 0]
     assert sorted(out["algos"]) == sorted(
         ["fedopt", "fedavg_robust", "fednova", "hierarchical",
          "turboaggregate", "centralized", "decentralized", "contribution",
@@ -163,7 +198,11 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "models.vfl", "models.resnet_gkt", "models.darts",
               "models.darts_eval", "models.darts_visualize",
               "algorithms.split_nn", "algorithms.vertical_fl",
-              "algorithms.fedgkt", "algorithms.fednas"):
+              "algorithms.fedgkt", "algorithms.fednas", "comm.reliable",
+              "comm.tcp", "comm.grpc_backend", "comm.grpc_proto",
+              "comm.mqtt", "comm.routed", "native", "utils.checkpoint",
+              "utils.context", "state.store", "state.residuals",
+              "algorithms.base_framework"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
     assert not bad, bad
