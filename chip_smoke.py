@@ -200,7 +200,22 @@
 28. runs one cross-silo LR round over TCP with the FedOpt-adam server on
    the card and on the CPU from the same weights (TF32 off): params and
    Adam state within 1e-5, beside the CPU round's drift under a 1e-7
-   relative perturbation. Phases 27-28 print their time.
+   relative perturbation. Phases 27-28 print their time;
+29. observability (the flight recorder, the FLOP counter, MFU): the CNN
+   main path through FedAvgAPI's host loop for 3 rounds with obs off and
+   3 with ``obs_dir`` set (same seed, cuDNN deterministic), the variables
+   bit for bit equal; ``flight_rank0.jsonl`` holds round records 0-2 with
+   their cohorts and one dispatch each and a perf record a round whose
+   ``peak_flops`` is the card's (989.4e12 on an H100 80GB HBM3), ``0 <
+   mfu < 1`` and ``round_flops`` equal to the analytic count of the same
+   round on the CPU; the anomaly profiler armed for round 2, its trace
+   naming the aggregation kernel once and the launches one a round; the
+   CNN federation over TCP for 2 rounds of ``delta_int8`` with obs on
+   against obs off (bit for bit, int8 launches as the schedule implies),
+   a flight log a rank, a ``silo`` row a silo a round, ``obs merge``
+   exiting 0; the fused block's ``cost_analysis`` over 2 rounds beside
+   the host round's count (the padding-only steps' share). It prints
+   each round's mfu and round_flops and the phase's time.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -211,6 +226,7 @@ goes to runs/chip_smoke/record.json, beside the main path's metrics.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1439,31 +1455,68 @@ def _profile(run, rounds, cpu_ops=True):
     it is not used where kernels are counted: in a run of this script it
     saw fewer of a fused block's aggregation kernels than ran."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
     acts = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu_ops
             else [ProfilerActivity.CUDA])
-    with profile(activities=acts) as prof:
+    with _profile_window(acts) as prof:
         run()
         torch.cuda.synchronize()
-    evs = prof.key_averages()
+    # the raw events, not key_averages(): that builds an event tree first,
+    # which took 35 s for a fresh driver's first block (~300k events)
+    # where one pass over the raw events took 2.5 s
+    return _profile_stats([(e.name(), e.device_type().name, e.duration_ns())
+                           for e in prof.profiler.kineto_results.events()],
+                          rounds)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    device = [e for e in evs if e.device_type == DeviceType.CUDA
-              and dev_us(e) > 0]
+
+PROFILE_MARGIN_S = 0.05
+
+
+@contextlib.contextmanager
+def _profile_window(acts):
+    """A ``torch.profiler`` window with ``PROFILE_MARGIN_S`` of idle host
+    time at each edge, the device drained at both. The profiler keeps a
+    device activity only if it lies inside the window on the host's clock,
+    as converted from the device's timestamps; a fused block's last
+    aggregation kernel runs close to the block's end, and in one run of
+    this script the profiler saw one aggregation kernel fewer than ran.
+    The margins keep such a kernel well inside the window."""
+    import torch
+    from torch.profiler import profile
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+
+
+def _profile_stats(events, rounds):
+    """``_profile``'s figures from ``(name, device type, ns)`` events. A
+    kernel counts by its device event whatever duration the profiler gave
+    it (as ``key_averages()``' ``count`` counted it)."""
+    device = [(name, ns) for name, kind, ns in events if kind == "CUDA"]
     return {
-        "device_ms_per_round": sum(dev_us(e) for e in device) / 1e3 / rounds,
-        "wmean_kernels": sum(e.count for e in device if "wmean_" in e.key),
+        "device_ms_per_round": sum(max(ns, 0) for _, ns in device) / 1e6
+        / rounds,
+        "wmean_kernels": sum(1 for name, _ in device if "wmean_" in name),
+        "wmean_kernels_without_duration": sum(
+            1 for name, ns in device if "wmean_" in name and ns <= 0),
+        "device_events": len(device),
         # device kernels whose names say they compute in bf16 (cuDNN's and
         # cuBLAS's bf16 convolutions and GEMMs, and the casts)
-        "bf16_kernels": sorted({e.key[:120] for e in device if any(
-            t in e.key.lower() for t in ("bf16", "bfloat16"))}),
+        "bf16_kernels": sorted({name[:120] for name, _ in device if any(
+            t in name.lower() for t in ("bf16", "bfloat16"))}),
         "launch_calls_per_round": {
-            k: sum(e.count for e in evs if e.key == k) / rounds
+            k: sum(1 for name, _, _ in events if name == k) / rounds
             for k in ("cudaLaunchKernel", "cudaGraphLaunch")}}
+
+
+def _device_events(prof):
+    """What a failed count of ``_profile``'s kernels reports beside it."""
+    return (f"{prof['device_events']} device events in the window, "
+            f"{prof['wmean_kernels_without_duration']} aggregation kernels "
+            "without a duration")
 
 
 def _padding_steps(fused, r0):
@@ -1604,7 +1657,7 @@ def _host_vs_fused_timing(parts, compute_dtype=None, reps=3,
         raise AssertionError(
             f"a profiled fused block of {PROFILED_R} rounds: the profiler "
             f"saw {fused_prof['wmean_kernels']} aggregation kernels, the "
-            f"driver counted {driver}")
+            f"driver counted {driver} ({_device_events(fused_prof)})")
     # a new driver's first block, under the profiler: its capture records
     # the kernel without running it, its warm-up round runs it once
     fresh = api.fused_rounds()
@@ -1617,7 +1670,8 @@ def _host_vs_fused_timing(parts, compute_dtype=None, reps=3,
         raise AssertionError(
             f"a profiled fused block with {len(fresh.graphs)} captures: the "
             f"profiler saw {capture_prof['wmean_kernels']} aggregation "
-            f"kernels, the driver counted {counted}, {PROFILED_R} rounds")
+            f"kernels, the driver counted {counted}, {PROFILED_R} rounds "
+            f"({_device_events(capture_prof)})")
     padding = _padding_steps(fused, first)
     bf16 = compute_dtype == "bfloat16"
     for name, prof in (("host loop", host_prof), ("fused", fused_prof)):
@@ -2232,7 +2286,8 @@ def _anchor_timing(parts, label, rounds=ANCHOR_R, reps=3):
         raise AssertionError(
             f"{label}: a profiled fused block of {rounds} rounds: the "
             f"profiler saw {fused_prof['wmean_kernels']} aggregation "
-            f"kernels, the driver counted {driver}")
+            f"kernels, the driver counted {driver} "
+            f"({_device_events(fused_prof)})")
     graphs = [{"capture_s": g.capture_s, "pool_bytes": g.pool_bytes}
               for g in fused.graphs.values()]
     out = {"rounds_per_s": host_rps, **host_prof,
@@ -2367,17 +2422,17 @@ def _launch_calls(fn, cpu_ops=True) -> int:
     the CUDA activity alone (the runtime's calls and the kernels), for a
     call of tens of thousands of launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
-    torch.cuda.synchronize()
     acts = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu_ops
             else [ProfilerActivity.CUDA])
-    with profile(activities=acts) as prof:
+    with _profile_window(acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync",
-        "cudaMemsetAsync"))
+    # the raw events, as _profile counts them (key_averages() is slow)
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                               "cudaMemcpyAsync", "cudaMemsetAsync"))
 
 
 def _step_launches(parts):
@@ -3587,6 +3642,187 @@ def phase_cross_silo_sockets_card_vs_cpu():
     return {"max_abs_diff": diff, "cpu_drift_1e-7": drift}
 
 
+OBS_R = 2  # rounds of the observed TCP federation (phase 29)
+
+
+def _obs_sim(parts, obs_dir=None, profile_round=None):
+    """Phase 29's simulation: 3 host-loop rounds of the main path through
+    FedAvgAPI, obs on when ``obs_dir`` is set; returns the API and the
+    aggregation launches."""
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.ops import aggregate
+
+    api = _algo_api(FedAvgAPI, FedAvgConfig, parts, 3,
+                    config={"obs_dir": obs_dir, "job_id": "chip_smoke"}
+                    if obs_dir else None)
+    before = aggregate.weighted_mean_flat.launches
+    for r in range(3):
+        if r == profile_round:
+            # a one-shot window over this round, as a slow round arms one
+            api._obs.note_anomaly("chip_smoke", r)
+        api.run_round(r)
+    torch.cuda.synchronize()
+    return api, aggregate.weighted_mean_flat.launches - before
+
+
+def phase_observability():
+    """Phase 29: the flight recorder, the round-FLOP counter and MFU on the
+    card, on the host loop and the cross-silo federation."""
+    import copy
+
+    import torch
+    from fedml_tpu_torch.algorithms.fedavg import (FLOPS_SOURCE, FedAvgAPI,
+                                                   FedAvgConfig)
+    from fedml_tpu_torch.obs import read_flight_log
+    from fedml_tpu_torch.obs import __main__ as obs_cli
+    from fedml_tpu_torch.obs.perf import device_peak_flops
+    from fedml_tpu_torch.utils.flops import analytic_flops
+
+    t0 = time.perf_counter()
+    base = os.path.join(ROOT, "runs", "chip_smoke", "obs")
+    shutil.rmtree(base, ignore_errors=True)
+    name = torch.cuda.get_device_name(0)
+    peak = device_peak_flops(name)
+    if "H100 80GB HBM3" in name and peak != 989.4e12:
+        raise AssertionError(f"{name}: peak {peak}")
+    if not peak:
+        raise AssertionError(f"no peak FLOP/s for {name!r}")
+    out = {"smi": _smi(), "device": name, "peak_flops": peak}
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # (a) the simulation, obs off and on, and (b) the profile window
+        parts = _main_api_parts()
+        clean, _ = _obs_sim(parts)
+        sim_dir = os.path.join(base, "sim")
+        api, launches = _obs_sim(parts, sim_dir, profile_round=2)
+        _check_same_model("sim obs on vs off", api.variables,
+                          clean.variables)
+        if launches != 3:
+            raise AssertionError(f"sim with obs: {launches} aggregation "
+                                 "launches in 3 rounds")
+        rows = read_flight_log(os.path.join(sim_dir, "flight_rank0.jsonl"))
+        rounds = [r for r in rows if r["kind"] == "round"]
+        perfs = [r for r in rows if r["kind"] == "perf"]
+        if [r["round"] for r in rounds] != [0, 1, 2] or any(
+                len(r["cohort"]) != HEADLINE[0]
+                or r["phases"]["dispatch"]["n"] != 1 for r in rounds):
+            raise AssertionError(f"sim round records: {rounds}")
+        # each round counted on the CPU in full: counting depends on
+        # shapes and on which steps run, and each round's cohort differs
+        ds, model, task, tc = parts
+        cpu = FedAvgAPI(ds, copy.deepcopy(model), task=task, device="cpu",
+                        config=FedAvgConfig(
+                            comm_round=3, client_num_per_round=HEADLINE[0],
+                            train=tc))
+        cpu_flops, real_steps = [], []
+        for r in range(3):
+            _, (x, y, mask, w, plan, agg) = cpu._prepare_round(r)
+            cpu_flops.append(analytic_flops(cpu._round_fn, cpu.variables, x,
+                                            y, mask, w, plan, agg, None))
+            real_steps.append((int(plan.has_real.sum()),
+                               int(plan.has_real.size)))
+        if [p["round"] for p in perfs] != [0, 1, 2]:
+            raise AssertionError(f"sim perf records: {perfs}")
+        for p in perfs:
+            want = cpu_flops[p["round"]]
+            if not (p["peak_flops"] == peak and 0 < p["mfu"] < 1
+                    and p["round_flops"] == want
+                    and p["flops_source"] == FLOPS_SOURCE):
+                raise AssertionError(f"perf record {p} (peak {peak}, the "
+                                     f"CPU's count {want})")
+            real, gated = real_steps[p["round"]]
+            log(f"obs sim round {p['round']}: mfu {p['mfu']:.6g}, "
+                f"round_flops {p['round_flops']:.6g} ({real} real steps of "
+                f"{gated}), {p['duration_s']:.4f} s, device_mem_peak_mb "
+                f"{p.get('device_mem_peak_mb')}")
+        trace = os.path.join(sim_dir, "profiles", "round_000002",
+                             "trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        wmean = [k for k in kernels if "wmean_" in k]
+        if len(wmean) != 1:
+            raise AssertionError(f"the round-2 trace names {len(wmean)} "
+                                 f"aggregation kernels: {wmean[:3]}")
+        out["sim"] = {"launches": launches,
+                      "perf": [{k: p.get(k) for k in (
+                          "round", "duration_s", "round_flops", "mfu",
+                          "achieved_flops_per_s", "device_mem_peak_mb")}
+                          for p in perfs],
+                      "cpu_round_flops": cpu_flops,
+                      "real_steps": real_steps,
+                      "trace_kernels": len(kernels),
+                      "trace_wmean": wmean[0]}
+        log(f"obs sim: 3 rounds bit for bit with obs off, {launches} "
+            f"aggregation launches, peak {peak:.6g} FLOP/s from {name!r}, "
+            f"round_flops {cpu_flops} as counted on the CPU; the round-2 "
+            f"trace holds {len(kernels)} kernels, the aggregation's "
+            f"{wmean[0][:60]!r} once")
+        # (d) the fused block's count beside the same rounds' host counts
+        fused = api.fused_rounds().cost_analysis(0, 2)
+        per_round = fused["flops"] / 2
+        shares = [f / per_round for f in cpu_flops[:2]]
+        out["fused"] = {"block_flops": fused["flops"],
+                        "flops_per_round": per_round,
+                        "bytes_accessed": fused["bytes accessed"],
+                        "by_class": fused["flops_by_class"],
+                        "host_round_flops": cpu_flops[:2],
+                        "host_share": shares}
+        log(f"fused 2-round block: {per_round:.6g} FLOP a round against the "
+            f"host rounds' {cpu_flops[0]:.6g} and {cpu_flops[1]:.6g} "
+            f"({shares[0]:.3f} and {shares[1]:.3f} of it; the rest is the "
+            f"padding-only steps and the gates)")
+        # (c) the federation over TCP, obs off and on
+        silo_dir = os.path.join(base, "silo")
+        runs = {}
+        for tag, obs in (("off", None), ("on", silo_dir)):
+            runs[tag] = _silo_api("delta_int8", OBS_R, silos=HEADLINE[0],
+                                  backend="TCP",
+                                  addresses=_free_ports(HEADLINE[0] + 1),
+                                  obs_dir=obs)
+        want = _silo_launches(OBS_R, HEADLINE[0], "delta_int8")
+        for tag, r in runs.items():
+            _check_launches(f"tcp obs {tag}", r["launches"], want)
+        _check_same_model("tcp obs on vs off", runs["on"]["model"],
+                          runs["off"]["model"])
+        logs = sorted(os.listdir(silo_dir))
+        if logs != sorted(f"flight_rank{r}.jsonl"
+                          for r in range(HEADLINE[0] + 1)):
+            raise AssertionError(f"flight logs {logs}")
+        srv = read_flight_log(os.path.join(silo_dir, "flight_rank0.jsonl"))
+        for r in range(OBS_R):
+            ranks = sorted(x["silo_rank"] for x in srv
+                           if x["kind"] == "silo" and x["round"] == r)
+            if ranks != list(range(1, HEADLINE[0] + 1)):
+                raise AssertionError(f"round {r}: silo rows {ranks}")
+        merge_rc = obs_cli.main(["merge", silo_dir,
+                                 "--output", os.path.join(base,
+                                                          "merged.json")])
+        if merge_rc != 0:
+            raise AssertionError(f"obs merge exited {merge_rc}")
+        silo_perf = [x for x in srv if x["kind"] == "perf"]
+        out["silo"] = {"launches": runs["on"]["launches"],
+                       "rounds_per_s": {t: r["rounds_per_s"]
+                                        for t, r in runs.items()},
+                       "perf": silo_perf}
+        log(f"obs tcp: {OBS_R} delta_int8 rounds bit for bit with obs off, "
+            f"int8 launches {runs['on']['launches']} (the schedule: {want}),"
+            f" {len(logs)} flight logs, obs merge exit 0; rounds/s on "
+            f"{runs['on']['rounds_per_s']:.3f} off "
+            f"{runs['off']['rounds_per_s']:.3f}; the server's wire bytes/s "
+            f"up {[x.get('wire_bytes_per_sec_up') for x in silo_perf]}")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 29 took {out['wall_s']:.1f} s")
+    return out
+
+
 def _build_each_federation_once() -> None:
     """Each generated federation is built once in a run and handed to every
     later entry-point call with the same arguments: the builders are pure
@@ -3646,6 +3882,7 @@ def main() -> None:
     record["sockets_card_vs_cpu"] = phase_cross_silo_sockets_card_vs_cpu()
     record["sockets_s"] = time.perf_counter() - t_sockets
     log(f"phases 27-28 took {record['sockets_s']:.1f} s")
+    record["observability"] = phase_observability()
     k = record["kernel"]
     zoo = record["zoo_models"]
     kernels = [{
@@ -3679,6 +3916,7 @@ def main() -> None:
                for loss in ("ce", "focal")}},
         "launches_buffered_close":
             record["sockets"]["buffered_close"]["launches"],
+        "launches_obs": record["observability"]["sim"]["launches"],
         "launches_slice_f": {
             **{a: record["split_vertical_paths"][a]["launches"]
                for a in ("vertical_fl", "split_nn")},
@@ -3726,6 +3964,8 @@ def main() -> None:
             "launches_routed":
                 record["sockets"]["routed"]["routed"]["launches"][kern],
             "launches_resume": record["sockets"]["resume"]["launches"][kern],
+            "launches_obs":
+                record["observability"]["silo"]["launches"][kern],
             "max_abs_err": record["quant"]["max_abs_err"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

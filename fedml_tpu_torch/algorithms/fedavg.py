@@ -23,6 +23,12 @@ the counterpart of the JAX package's ``lax.scan`` over rounds: on a CUDA
 device each round is one replay of a captured CUDA graph
 (parallel/graphs.py), with the host only filling its input buffers in
 between; on the CPU the same round body runs in a plain loop.
+
+With ``config.obs_dir`` set, the host loop writes the flight recorder's
+per-round timeline (``fedml_tpu_torch/obs``): a ``round`` record a round
+and a ``perf`` record with its MFU, whose FLOP count is probed once, on
+fake tensors, from the round about to dispatch (utils/flops.py). It is a
+pure observer: the trajectory is the same bits with it off.
 """
 
 from __future__ import annotations
@@ -61,6 +67,9 @@ from fedml_tpu_torch.utils.tracing import RoundTimer
 #: can silence it alone
 _progress_log = logging.getLogger("fedml_tpu_torch.progress")
 
+#: the perf records' ``flops_source``: the port's dispatch-level count
+FLOPS_SOURCE = "analytic_aten_dispatch"
+
 
 def _normalized(stats, prefix: str) -> Dict[str, float]:
     """Stat sums -> {prefix}_{acc,loss,total} means."""
@@ -87,8 +96,7 @@ def device_weighted_mean(device: torch.device):
 class FedAvgConfig:
     """Round-level knobs (reference argparse: --comm_round
     --client_num_in_total --client_num_per_round --frequency_of_the_test);
-    the fields of ``fedml_tpu.algorithms.fedavg.FedAvgConfig`` but
-    ``job_id``, which only names flight records."""
+    the fields of ``fedml_tpu.algorithms.fedavg.FedAvgConfig``."""
 
     comm_round: int = 10
     client_num_per_round: int = 10
@@ -104,8 +112,14 @@ class FedAvgConfig:
     # cohorts packed ahead on a background thread (0 = serial;
     # $FEDML_TPU_TORCH_PREFETCH overrides); only partial participation
     prefetch_depth: int = 2
-    # the flight recorder is not ported yet: setting obs_dir raises
+    # observability (fedml_tpu_torch/obs): directory for the flight
+    # recorder's per-round timeline (flight_rank0.jsonl), its perf records
+    # (MFU) and anomaly-armed one-shot profiles. None (default) = off; on,
+    # it is a pure observer: trajectories stay bit-exact
     obs_dir: Optional[str] = None
+    # flight-record correlation id; unset derives a collision-safe
+    # "sim-<8 hex>" per run (obs.default_job_id)
+    job_id: Optional[str] = None
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
@@ -130,10 +144,6 @@ class FedAvgAPI:
         self.task = task
         self.config = config or FedAvgConfig()
         self.delete_client = delete_client
-        if self.config.obs_dir is not None:
-            raise NotImplementedError(
-                "obs_dir (the flight recorder) is not ported yet: ROADMAP "
-                "Queue 1, item 24 (obs)")
         if self.config.pack not in ("cohort", "global"):
             raise ValueError(f"unknown pack policy: {self.config.pack!r}")
         cfg = self.config.train
@@ -165,6 +175,20 @@ class FedAvgAPI:
         # (prefetcher, dataset-at-build), built on the first partial round
         self._prefetch = None
         self.timer = RoundTimer()
+        # observability (fedml_tpu_torch/obs): the flight recorder, the
+        # slow-round profiler and the MFU accountant; config.obs_dir None
+        # (default) keeps it fully off
+        from fedml_tpu_torch.obs import build_observability, default_job_id
+        self._obs = build_observability(
+            self.config.obs_dir,
+            # collision-safe default: two unconfigured runs sharing an obs
+            # dir must not interleave under one literal id
+            job_id=self.config.job_id or default_job_id("sim"),
+            rank=0, role="server", perf_device=self.device)
+        if self._obs is not None:
+            self._obs.bind_timer(self.timer)
+        # the round-FLOP count's parts, per round shape (_round_flops)
+        self._flops_parts: Dict[tuple, tuple] = {}
 
     # -- one round ---------------------------------------------------------
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -320,16 +344,70 @@ class FedAvgAPI:
         return new_vars, totals
 
     def run_round(self, round_idx: int):
+        # flight-recorder round boundary (a pure observer: no RNG, no
+        # schedule effect; two dict copies when no recorder is bound)
         self.timer.begin_round(round_idx)
+        if self._obs is not None:
+            self._obs.round_begin(round_idx)
         idxs, (x, y, mask, weights, plan, agg_seed) = \
             self._host_round_inputs(round_idx)
+        lr_scale = round_lr_scale(self.config.train, round_idx, self.device)
+        variables = self.variables
         with self.timer.phase("dispatch"):
-            stats = self._dispatch(
-                x, y, mask, weights, plan, agg_seed,
-                round_lr_scale(self.config.train, round_idx, self.device))
-        self.timer.end_round(round_idx,
-                             extra={"cohort": [int(i) for i in idxs]})
+            stats = self._dispatch(x, y, mask, weights, plan, agg_seed,
+                                   lr_scale)
+        rec = self.timer.end_round(
+            round_idx, extra={"cohort": [int(i) for i in idxs]})
+        if self._obs is not None:
+            # the roofline count of the round just dispatched, taken after
+            # its wall closed (it reads shapes only: nothing launches, no
+            # RNG is drawn, no state is written)
+            self._obs.probe_round_flops(
+                lambda: self._round_flops(variables, x, y, mask, weights,
+                                          plan, agg_seed, lr_scale),
+                source=FLOPS_SOURCE)
+            self._obs.round_end(round_idx,
+                                rec["duration_s"] if rec else None,
+                                record=rec)
         return idxs, stats
+
+    def _round_flops(self, variables, x, y, mask, weights, plan,
+                     agg_seed, lr_scale) -> float:
+        """The analytic FLOPs (utils/flops.py) of one host-loop round as it
+        runs: every real step, the padding-only ones skipped, and the
+        aggregation. For its shapes a round bills a fixed close and, for
+        each client, one step program a real step (after the first, with
+        one add of its stats), so a client's ``n`` real steps bill ``f(n)
+        = f(1) + (n - 1) * (f(2) - f(1))`` for ``n >= 1`` and the round
+        ``R0 + sum_i (f(n_i) - f(0))``, where ``R0`` is the round with no
+        real step. Those counts are taken on fake tensors once a round
+        shape (three client steps and no round step): a later round of
+        the same shapes costs a sum."""
+        from fedml_tpu_torch.utils.flops import analytic_flops
+        has_real = np.asarray(plan.has_real, bool)
+        key = (tuple(x.shape), tuple(y.shape), has_real.shape,
+               lr_scale is None)
+        parts = self._flops_parts.get(key)
+        if parts is None:
+            client = plan.at(0)
+
+            def client_flops(n: int) -> float:
+                cut = np.zeros_like(has_real[0])
+                cut[:n] = True
+                return analytic_flops(
+                    self._local_train, variables, x[0], y[0], mask[0], None,
+                    lr_scale=lr_scale, schedule=client._replace(has_real=cut))
+            r0 = analytic_flops(self._round_fn, variables, x, y, mask,
+                                weights,
+                                plan._replace(has_real=np.zeros_like(
+                                    has_real)),
+                                agg_seed, lr_scale)
+            parts = (r0, [client_flops(n) for n in
+                          range(min(3, has_real.shape[1] + 1))])
+            self._flops_parts[key] = parts
+        r0, f = parts
+        return r0 + sum((f[n] if n <= 2 else f[2] + (n - 2) * (f[2] - f[1]))
+                        - f[0] for n in map(int, has_real.sum(1)))
 
     def _dispatch(self, x, y, mask, weights, plan, agg_seed, lr_scale):
         """Run one round's device work on the server state and return its
@@ -348,6 +426,15 @@ class FedAvgAPI:
             raise TypeError(
                 f"{type(self).__name__} cannot fuse rounds: its round has a "
                 "host-side stage that cannot run inside a captured round")
+        if self._obs is not None:
+            # per-round boundaries do not exist inside a fused block: say
+            # so instead of leaving an empty timeline to be discovered
+            logging.warning(
+                "observability is on but the fused multi-round driver "
+                "dispatches whole round BLOCKS: the flight log gets no "
+                "per-round records (and the slow-round detector no "
+                "durations) for fused spans; use the host round loop "
+                "for per-round timelines")
         return self._fused_driver_cls(self, device_sampling)
 
     # -- the outer loop (reference fedavg_api.py:46-95) ---------------------
@@ -637,10 +724,28 @@ class FusedRounds:
         return stats
 
     def cost_analysis(self, r0: int = 0, rounds: int = 1) -> Dict:
-        raise NotImplementedError(
-            "FusedRounds.cost_analysis (XLA's cost model in the JAX "
-            "package) is not ported yet: ROADMAP Queue 1, item 24 "
-            "(utils/flops.py)")
+        """``{"flops", "bytes accessed", "flops_by_class"}`` of the block
+        that :meth:`run_rounds` replays, whole-block totals (divide by
+        ``rounds`` for per-round figures): the analytic count
+        (utils/flops.py) of the block's first round through the gated
+        round body, every padding-only step included, times ``rounds``.
+        The block replays one captured round: its rounds have the same
+        shapes and a gated round's count depends on shapes alone (as XLA
+        bills a scan's body times its length). Nothing launches; bytes are
+        counted before fusion. The host round's count (the padding-only
+        steps skipped) is the perf record's ``round_flops``: without
+        padding-only steps the two agree in matmul/conv FLOPs and differ
+        by the gates' selects; with them, the gap is the padding's share
+        of the fused work."""
+        from fedml_tpu_torch.utils.flops import cost_analysis
+        block = self._block_inputs(r0, rounds)
+        one = cost_analysis(lambda args: self._step(self._init_carry(),
+                                                    *args),
+                            self._round_inputs(block, 0))
+        return {"flops": one["flops"] * rounds,
+                "bytes accessed": one["bytes accessed"] * rounds,
+                "flops_by_class": {k: v * rounds for k, v in
+                                   one["flops_by_class"].items()}}
 
     def train(self, max_rounds_per_dispatch: Optional[int] = None) -> Dict:
         """The ``FedAvgAPI.train`` loop with the rounds fused between eval

@@ -34,6 +34,14 @@ silo's error-feedback residual in ``state/residuals.py`` under
 ``checkpoint_dir/silo_<rank>``. Ranks talk over any transport of
 ``comm/registry.py`` (``backend`` with ``addresses`` and ``token``).
 
+With ``obs_dir`` every rank writes its own flight log
+(``fedml_tpu_torch/obs``) under one shared ``job_id``: the server a
+``round`` record a round with its perf record (wire bytes/s, the card's
+memory), and a ``silo`` row a reply with the report latency and the
+compact counter digest the silo piggybacks on it; each silo its own view
+of the round. Observability is a pure observer: the models are bit for
+bit those with it off.
+
 Models live on one device (``device``, default CUDA) as state dicts; the
 wire carries numpy arrays. All actors of a process share that device, so
 one lock serializes every device section, as in the JAX package. Random
@@ -43,9 +51,8 @@ port's ``derive_seed`` chain with the JAX package's tags: uplink
 training seeds are the simulation's ``round_keys``.
 
 Not ported yet, each raising ``NotImplementedError`` when set:
-deadline/quorum rounds and fault tolerance, the control plane,
-observability, serving, the WAN world and the multi-job scheduler hooks
-(see ROADMAP Slice D).
+deadline/quorum rounds and fault tolerance, the control plane, serving,
+the WAN world and the multi-job scheduler hooks (see ROADMAP Slice D).
 """
 
 from __future__ import annotations
@@ -73,6 +80,8 @@ from fedml_tpu_torch.core.sampling import (derive_seed, make_generator,
                                            round_keys, sample_clients)
 from fedml_tpu_torch.data.base import FederatedDataset
 from fedml_tpu_torch.models.common import init_params
+from fedml_tpu_torch.obs import (build_observability, default_job_id,
+                                 endpoint_epoch)
 from fedml_tpu_torch.trainer.functional import (TrainConfig,
                                                 make_batch_schedule,
                                                 make_eval, make_local_train,
@@ -98,6 +107,11 @@ MSG_ARG_KEY_BASE_SEQ = "base_seq"
 #: structure fingerprint of the silo's held model: a mismatch makes the
 #: server broadcast full precision
 MSG_ARG_KEY_BASE_FP = "base_fp"
+#: observability piggyback (fedml_tpu_torch/obs): the compact counter
+#: digest a silo attaches to its replies when the flight recorder is on;
+#: the server turns it into per-silo rows in ITS flight log. Absent in
+#: the (default) obs-off wire format.
+MSG_ARG_KEY_OBS_DIGEST = "obs_digest"
 
 #: seed-chain tags of the wire's random bits (the JAX package's key tags)
 UPLINK_SEED_TAG = 977
@@ -306,6 +320,11 @@ class FedAvgServerManager(ServerManager):
         self._wire_credited_down = 0
         #: the cohort of the open round (its round record)
         self._round_cohort: Optional[List[int]] = None
+        #: the observability bundle (obs.Observability) or None: off
+        self.obs = None
+        #: when the open round's broadcast went out: the origin of every
+        #: reply's report latency
+        self._bcast_at: Optional[float] = None
         # -- downlink compression state (comm/policy.py) --------------------
         self._policy = resolve_compression(compression)
         self._bcast_seq = -1
@@ -408,7 +427,12 @@ class FedAvgServerManager(ServerManager):
     def _broadcast_model(self, msg_type: int, idxs) -> None:
         """One shared payload (full or mirror delta) to every silo."""
         tm = self.round_timer
+        # the flight-recorder round boundary: snapshot the counters so
+        # _close_round's end_round attributes deltas to THIS round, and
+        # open any anomaly-armed one-shot profile window
         tm.begin_round(self.round_idx)
+        if self.obs is not None:
+            self.obs.round_begin(self.round_idx)
         with tm.phase("bcast_encode"):
             payload = self._encode_broadcast()
         self._round_cohort = [int(idxs[w - 1]) for w in range(1, self.size)]
@@ -424,6 +448,7 @@ class FedAvgServerManager(ServerManager):
             msg.add(MSG_ARG_KEY_BCAST_SEQ, self._bcast_seq)
             msgs.append(msg)
         t0 = time.monotonic()
+        self._bcast_at = t0
         self.com_manager.broadcast(msgs)
         tm.gauge("bcast_fanout_ms", (time.monotonic() - t0) * 1e3)
 
@@ -442,9 +467,25 @@ class FedAvgServerManager(ServerManager):
         base = self._mirror if self._mirror is not None else self.global_model
         return decompress(payload, base)
 
+    def _record_silo_row(self, msg: Message, worker: int) -> None:
+        """The per-silo flight row of a reply: the server-measured report
+        latency plus the digest the silo piggybacked (the cross-process
+        half of the merged round timeline)."""
+        row = {"kind": "silo", "round": int(self.round_idx),
+               "silo_rank": int(worker + 1), "event": "reply"}
+        digest = msg.get_params().get(MSG_ARG_KEY_OBS_DIGEST)
+        if digest is not None:
+            row["digest"] = digest
+        if self._bcast_at is not None:
+            row["report_latency_s"] = round(
+                time.monotonic() - self._bcast_at, 6)
+        self.obs.recorder.append(row)
+
     def handle_message_receive_model_from_client(self, msg: Message) -> None:
         worker = msg.get_sender_id() - 1
         self._note_worker_base(msg)
+        if self.obs is not None:
+            self._record_silo_row(msg, worker)
         tm = self.round_timer
         with self._device_lock, tm.phase("decode"):
             payload = self._decode_model_payload(
@@ -488,9 +529,25 @@ class FedAvgServerManager(ServerManager):
         if self.on_round_done is not None:
             with tm.phase("eval"):
                 self.on_round_done(self.round_idx, self.global_model)
+        # wire bytes are credited as deltas since the last close FIRST, so
+        # the round record's counters are this round's traffic (the perf
+        # record's wire bytes/s derive from exactly these)
         self._credit_wire_bytes()
-        tm.end_round(self.round_idx, extra={
-            "cohort": self._round_cohort, "reported": reported})
+        # the strict barrier closes every round in full
+        rec = tm.end_round(self.round_idx, extra={
+            "cohort": self._round_cohort,
+            "reported": [int(w) for w in reported], "partial": False})
+        if self.obs is not None:
+            # the server derives wire bytes/s and the card's memory per
+            # round (MFU stays silo-side: the server only aggregates)
+            self.obs.round_end(self.round_idx,
+                               rec["duration_s"] if rec else None,
+                               record=rec)
+            # group-commit fsyncs since the last close (credited after
+            # end_round, so they roll into the NEXT round's delta)
+            batches = self.obs.recorder.pop_fsync_batches()
+            if batches:
+                tm.count("obs_fsync_batches", batches)
         self.round_idx += 1
         if self.checkpoint_mgr is not None:
             with self._device_lock, tm.phase("checkpoint"):
@@ -566,9 +623,13 @@ class FedAvgClientManager(ClientManager):
                  compress: bool = False, compression=None,
                  state_dir: Optional[str] = None, resume: bool = False,
                  prefetch_depth: int = 2, device="cuda",
-                 timer: Optional[RoundTimer] = None):
+                 timer: Optional[RoundTimer] = None, obs=None):
         super().__init__(rank, size, com_manager)
         self.dataset = dataset
+        #: this silo's observability bundle (its own flight log) or None
+        self._obs = obs
+        #: rounds this silo trained and replied to (the digest's progress)
+        self.rounds_completed = 0
         self.device = resolve_device(device)
         self._device_lock = _DEVICE_LOCK
         validate_accum_steps(train_cfg, dataset.train_data_local_num_dict)
@@ -689,7 +750,27 @@ class FedAvgClientManager(ClientManager):
                                  self.rank, round_idx)
         return self._residual
 
+    def _obs_digest(self) -> Dict:
+        """The compact counter digest piggybacked on replies when
+        observability is on: cumulative wire bytes, transport retries and
+        dedup drops, rounds completed and prefetch hits, plus this
+        endpoint incarnation's stream epoch, a few dozen bytes."""
+        com = self.com_manager
+        counters = dict(getattr(com, "counters", {}))
+        digest = {"rounds_completed": int(self.rounds_completed),
+                  "epoch": endpoint_epoch(com) or 0,
+                  "bytes_up": int(getattr(com, "bytes_sent", 0)),
+                  "bytes_down": int(getattr(com, "bytes_received", 0)),
+                  "retries": int(counters.get("retries", 0)),
+                  "dedup_drops": int(counters.get("dedup_drops", 0))}
+        if self._prefetch is not None:
+            st = self._prefetch.stats()
+            digest["prefetch_hits"] = int(st.get("hits", 0))
+            digest["prefetch_misses"] = int(st.get("misses", 0))
+        return digest
+
     def handle_message_init(self, msg: Message) -> None:
+        t0 = time.perf_counter()
         tm = self._timer
         client_idx = int(msg.get(MSG_ARG_KEY_CLIENT_INDEX))
         round_idx = msg.get(MSG_ARG_KEY_ROUND)
@@ -746,7 +827,16 @@ class FedAvgClientManager(ClientManager):
         # the held-base report drives the server's downlink decision
         reply.add(MSG_ARG_KEY_BASE_SEQ, self._held_seq)
         reply.add(MSG_ARG_KEY_BASE_FP, tree_fingerprint(variables))
+        if self._obs is not None:
+            # the digest for the server's per-silo row, and this silo's
+            # own view of the round, recorded BEFORE the send
+            reply.add(MSG_ARG_KEY_OBS_DIGEST, self._obs_digest())
+            self._obs.recorder.append(
+                {"kind": "round", "round": int(round_idx),
+                 "client_idx": int(client_idx),
+                 "train_s": round(time.perf_counter() - t0, 6)})
         self.send_message(reply)
+        self.rounds_completed += 1
 
 
 #: options of the JAX launchers that the port does not run yet, with the
@@ -761,8 +851,6 @@ _NOT_PORTED = {
     "join_rate_limit": "Slice D item 23 (control plane)",
     "serve_port": "Slice D item 23 (serving)",
     "serving": "Slice D item 23 (serving)",
-    "obs_dir": "Slice D item 24 (obs)",
-    "job_id": "Slice D item 24 (obs)",
     "wan_trace": "Slice D item 22f (the WAN world)",
     "wan_profiles": "Slice D item 22f (the WAN world)",
     "wan": "Slice D item 22f (the WAN world)",
@@ -847,7 +935,8 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
     silos' and transport's in :func:`launch_federation` (``min_quorum_frac``,
     ``max_deadline_extensions``, ``serve_staleness_rounds`` and
     ``wan_round_s`` only take effect with one of those, so they are
-    accepted and unused)."""
+    accepted and unused). ``obs_dir`` gives every rank a flight log
+    under one ``job_id`` (see :func:`launch_federation`)."""
     _refuse_not_ported(
         round_deadline_s=round_deadline_s,
         server_checkpoint_dir=server_checkpoint_dir,
@@ -972,10 +1061,14 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     size, addresses=, token=)``; ``client_state_dir`` holds each silo's
     residual store (``silo_<rank>``), restored once on ``resume``. The
     transport counters (``retries``, ``dedup_drops``, ``conn_errors``)
-    of every endpoint are summed into the timer as ``ft_*``."""
+    of every endpoint are summed into the timer as ``ft_*``. ``obs_dir``
+    builds one observability bundle a rank (the server's with the
+    slow-round profiler and the perf accountant) under one ``job_id``,
+    derived once for the launch when unset; every recorder is closed on
+    the way out."""
     _refuse_not_ported(
         checkpoint_sync=state_sync, heartbeat_s=heartbeat_s,
-        fault_plan=fault_plan, obs_dir=obs_dir, job_id=job_id,
+        fault_plan=fault_plan,
         comm_factory=comm_factory, device_gate=device_gate,
         serve_port=serve_port, serving=serving, wan=wan)
     if not wire_codec:
@@ -1028,18 +1121,37 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
                                 round_idx, exc_info=True)
 
     errors: List[BaseException] = []
+    # one id for every rank of this launch; keyed on the run's durable
+    # namespace when it has one, so a resumed run rejoins its own flight
+    # timeline instead of forking a phantom second job
+    job = job_id or default_job_id("fed", stable_key=client_state_dir)
+    observers = []
+
+    def observe(com, rank, role):
+        obs = build_observability(obs_dir, job_id=job, rank=rank, role=role,
+                                  perf_device=dev)
+        if obs is not None:
+            obs.recorder.set_epoch(endpoint_epoch(com))
+            observers.append(obs)
+        return obs
+
     try:
-        server = server_factory(size, endpoint(0), FedAvgAggregator(
+        server_com = endpoint(0)
+        server = server_factory(size, server_com, FedAvgAggregator(
             worker_num), global_model, on_round_done)
         server.round_timer = timer
+        server.obs = observe(server_com, 0, "server")
+        if server.obs is not None:
+            server.obs.bind_timer(timer)
         for rank in range(1, size):
+            com = endpoint(rank)
             clients.append(FedAvgClientManager(
-                rank, size, endpoint(rank), dataset, module, task,
+                rank, size, com, dataset, module, task,
                 train_cfg, seed=seed, compression=policy,
                 state_dir=(os.path.join(client_state_dir, f"silo_{rank}")
                            if client_state_dir else None),
                 resume=resume, prefetch_depth=prefetch_depth, device=dev,
-                timer=timer))
+                timer=timer, obs=observe(com, rank, "silo")))
         threads = [threading.Thread(target=_actor(c.run, errors, stop_all),
                                     daemon=True, name=f"silo{c.rank}")
                    for c in clients]
@@ -1064,6 +1176,8 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
         for c in clients:
             if c._prefetch is not None:
                 c._prefetch.close()
+        for obs in observers:
+            obs.close()
     if errors:
         raise errors[0]
     if timed_out:

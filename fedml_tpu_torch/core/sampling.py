@@ -22,6 +22,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from fedml_tpu_torch.utils.flops import is_fake
+
 #: the reference contract pins the draw to the GLOBAL numpy RNG
 #: (np.random.seed(round_idx) then choice). That state is shared
 #: process-wide, so the cohort prefetch worker drawing round r+1 while the
@@ -212,8 +214,9 @@ def fold32(key, data):
 
 #: ``_mul32(arange(n), _GOLDEN)`` by ``(n, device)``: a dropout site draws
 #: the same counters at every step. An entry is never evicted (a captured
-#: CUDA graph may read it); past ``_WEYL_MAX`` sizes, or while a CUDA graph
-#: captures, the counters are computed at the call instead.
+#: CUDA graph may read it); past ``_WEYL_MAX`` sizes, while a CUDA graph
+#: captures, or under the FLOP counter (a fake tensor holds no values),
+#: the counters are computed at the call instead.
 _WEYL: dict = {}
 _WEYL_MAX = 32
 
@@ -224,7 +227,7 @@ def _weyl(n: int, device) -> torch.Tensor:
     if got is None:
         got = _mul32(torch.arange(n, dtype=torch.int64, device=device),
                      _GOLDEN)
-        if len(_WEYL) < _WEYL_MAX and not (
+        if len(_WEYL) < _WEYL_MAX and not is_fake(got) and not (
                 device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
             _WEYL[(n, device)] = got

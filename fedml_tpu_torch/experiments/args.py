@@ -76,7 +76,21 @@ def add_federated_args(parser: argparse.ArgumentParser):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--run_dir", type=str, default="./runs/latest")
     parser.add_argument("--obs_dir", type=str, default=None,
-                        help="flight recorder (not ported yet: raises)")
+                        help="federation flight recorder "
+                             "(fedml_tpu_torch/obs): per-round telemetry "
+                             "and perf (MFU) records to "
+                             "flight_rank<r>.jsonl under this directory, "
+                             "per-silo digest rows, and anomaly-armed "
+                             "one-shot torch.profiler windows under "
+                             "<obs_dir>/profiles. Merge N logs with "
+                             "`python -m fedml_tpu_torch.obs merge "
+                             "<obs_dir>`. Pure observer: trajectories are "
+                             "bit-exact vs unset (the default: off)")
+    parser.add_argument("--job_id", type=str, default=None,
+                        help="flight-record correlation id stamped on "
+                             "every telemetry record (default: a derived "
+                             "per-run id) — lets one obs_dir hold several "
+                             "jobs' logs")
     parser.add_argument("--use_wandb", action="store_true")
     parser.add_argument("--checkpoint_dir", type=str, default=None,
                         help="save the round state after every round (the "

@@ -163,6 +163,12 @@ def _warn_unwired(args) -> None:
     if args.checkpoint_dir:
         logging.warning("--checkpoint_dir is only wired for --algo fedavg "
                         "and fedavg_cross_silo; ignoring for %r", args.algo)
+    if args.obs_dir or args.job_id:
+        # the JAX launcher threads the flight recorder through these two
+        # paths alone
+        logging.warning("--obs_dir/--job_id are only wired for --algo "
+                        "fedavg and fedavg_cross_silo; ignoring for %r",
+                        args.algo)
 
 
 def _refuse_unported(args) -> None:

@@ -13,15 +13,18 @@ through ``FusedRounds`` (on a GPU, replays of a captured CUDA graph of the
 round). ``--checkpoint_dir`` saves the round state after every round (the
 simulation's model; the cross-silo server's model and each silo's EF
 residual) and ``--resume`` restarts from the latest checkpoint, for the
-host loop of either backend. ``--backend spmd`` and ``--obs_dir`` are not
-ported yet and raise ``NotImplementedError``.
+host loop of either backend. ``--obs_dir`` (with ``--job_id``) turns on the
+flight recorder for either backend: ``flight_rank<r>.jsonl`` a rank, with
+per-round perf records (MFU against the card's BF16 peak); read them with
+``python -m fedml_tpu_torch.obs merge|report|tail <obs_dir>``.
+``--backend spmd`` is not ported yet and raises ``NotImplementedError``.
 
 Usage: python -m fedml_tpu_torch.experiments.main_fedavg \
     --dataset femnist_gen --client_num_in_total 200 --client_num_per_round 10 \
     --batch_size 20 --lr 0.1 --comm_round 5 \
     [--fused_rounds 5 --compute_dtype bfloat16] \
     [--backend inproc|tcp|grpc --compression topk_ef_int8:0.05] \
-    [--checkpoint_dir ckpt [--resume]]
+    [--checkpoint_dir ckpt [--resume]] [--obs_dir obs [--job_id j]]
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def run_simulation(args, ds, model, task, sink):
                        seed=args.seed,
                        eval_train_subsample=args.eval_train_subsample,
                        prefetch_depth=args.prefetch_depth,
-                       obs_dir=args.obs_dir,
+                       obs_dir=args.obs_dir, job_id=args.job_id,
                        train=make_train_config(args))
     api = FedAvgAPI(ds, model, task=task, config=cfg, device=args.device)
     if args.fused_rounds:
@@ -113,7 +116,7 @@ def run_cross_silo(args, ds, model, task, sink):
         compression=args.compression, seed=args.seed,
         checkpoint_dir=args.checkpoint_dir, resume=args.resume,
         prefetch_depth=args.prefetch_depth, obs_dir=args.obs_dir,
-        timer=timer, device=args.device)
+        job_id=args.job_id, timer=timer, device=args.device)
     for rec in history:
         sink.log(rec, step=rec["round"])
     rounds = max(1, len(history))

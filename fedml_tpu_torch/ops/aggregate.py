@@ -13,6 +13,11 @@ counterpart of ``tree_weighted_mean_pallas``): it copies every leaf into
 one ``[C, D]`` buffer, launches once, and returns views of the result. Its
 buffer's rows are padded to a multiple of 4 floats, so the kernel reads
 every row with 16-byte loads; the padding is never read.
+
+Under the FLOP counter (``utils/flops.py``) neither front end launches:
+each sees a fake tensor and bills a formula from its shapes,
+:func:`weighted_mean_flat_flops` and :func:`tree_weighted_mean_flops`,
+equal to what its plain version's ops bill.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import functools
 
 import torch
 
+from fedml_tpu_torch.core.pytree import tree_weighted_mean
 from fedml_tpu_torch.ops.build import load_library
+from fedml_tpu_torch.utils import flops
 
 #: dynamic shared memory holds the C weights; 48 KB without opting in
 MAX_CLIENTS = 48 * 1024 // 4
@@ -53,6 +60,22 @@ def weighted_mean_flat_reference(stacked: torch.Tensor,
     return (w[:, None] * stacked.to(torch.float32)).sum(dim=0)
 
 
+def weighted_mean_flat_flops(c: int, d: int) -> float:
+    """FLOPs of :func:`weighted_mean_flat_reference` on ``[C, D]``: the
+    weights' sum (C) and division (C), the products (C D) and their sum
+    over clients (C D)."""
+    return 2.0 * c + 2.0 * c * d
+
+
+def tree_weighted_mean_flops(c: int, d: int) -> float:
+    """FLOPs of the per-leaf mean ``core.pytree.tree_weighted_mean`` (the
+    CPU path's aggregation, and the JAX package's) over a state dict of
+    ``d`` values a client: the weights' sum (C), then per leaf of n values
+    the products (C n), their sum over clients (C n) and the division by
+    the total (n)."""
+    return float(c) + 2.0 * c * d + float(d)
+
+
 def _row_stride(stacked: torch.Tensor) -> int:
     c, d = stacked.shape
     # a single row's stride is never followed; round D up so the 16-byte
@@ -81,6 +104,11 @@ def weighted_mean_flat(stacked: torch.Tensor,
     if weights.device != stacked.device:
         raise ValueError(f"weights on {weights.device}, stacked on "
                          f"{stacked.device}")
+    if flops.is_fake(stacked):
+        return flops.bill_kernel(
+            "wmean_f32", weighted_mean_flat_flops(c, d),
+            4.0 * (c * d + c + d), weighted_mean_flat_reference, stacked,
+            weights)
     if stacked.device.type == "cpu":
         return weighted_mean_flat_reference(stacked, weights)
     if stacked.device.type != "cuda":
@@ -141,7 +169,16 @@ def tree_weighted_mean_fused(stacked_tree, weights):
     next round on such views left the bits of a captured round, which
     trains on its own buffers (most likely cuDNN and cuBLAS take other
     kernels, with other rounding, for a view whose offset is not 16-byte
-    aligned)."""
+    aligned).
+
+    Under the FLOP counter it launches nothing and bills
+    :func:`tree_weighted_mean_flops`, the count of the per-leaf mean."""
+    leaves = list(stacked_tree.values())
+    if flops.is_fake(leaves[0]):
+        c, d = leaves[0].shape[0], sum(leaf[0].numel() for leaf in leaves)
+        return flops.bill_kernel(
+            "wmean_f32", tree_weighted_mean_flops(c, d),
+            4.0 * (c * d + c + d), tree_weighted_mean, stacked_tree, weights)
     mean = weighted_mean_flat(flatten_stack(stacked_tree), weights)
     out, off = {}, 0
     for k, leaf in stacked_tree.items():

@@ -35,6 +35,7 @@ from typing import Tuple
 import torch
 
 from fedml_tpu_torch.ops.build import load_library
+from fedml_tpu_torch.utils.flops import is_fake
 from fedml_tpu_torch.parallel.sequence import _NEG_INF
 
 #: the head widths the CUDA kernels are built for
@@ -187,9 +188,12 @@ def _launch(what: str, launcher: str, q, *args) -> None:
 
 
 def _device_kind(q: torch.Tensor) -> str:
+    """"cpu" for a tensor that takes the plain version: a CPU tensor, or a
+    fake one of the FLOP counter (utils/flops.py), whichever device it
+    names (it holds no data, so nothing launches); else "cuda"."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    return q.device.type
+    return "cpu" if is_fake(q) else q.device.type
 
 
 def flash_fwd(q, k, v, causal: bool):

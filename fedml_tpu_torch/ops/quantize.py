@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.ops.build import load_library
+from fedml_tpu_torch.utils.flops import is_fake
 
 BLOCK = 512  # values per scale block
 #: f32(1/127) = 0x3C010204, the reciprocal XLA multiplies by
@@ -143,9 +144,11 @@ def quantize_int8(x: torch.Tensor, bits: torch.Tensor,
     scales, x - dequantize(q))`` instead, the error rounded once, as
     :func:`dequantize_int8` with ``subtract_from=x`` computes it. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel (one
-    launch either way), counted in ``quantize_int8.launches``."""
+    launch either way), counted in ``quantize_int8.launches``. A fake
+    tensor (the FLOP counter's, utils/flops.py) takes the plain version,
+    which it bills."""
     bits = _check_quant_inputs(x, bits)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or is_fake(x):
         q, scales = quantize_int8_reference(x, bits)
         if residual:
             return q, scales, dequantize_int8_reference(q, scales, x)
@@ -184,7 +187,8 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, d: int,
     returns ``subtract_from - dequantized`` rounded once instead: the
     quantization error that top-k's error feedback keeps. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel, counted in
-    ``dequantize_int8.launches``."""
+    ``dequantize_int8.launches``. A fake tensor (the FLOP counter's) takes
+    the plain version, which it bills."""
     if values.dtype != torch.int8 or tuple(values.shape) != (d,):
         raise TypeError(f"values must be int8 [{d}], got {values.dtype} "
                         f"{tuple(values.shape)}")
@@ -203,7 +207,7 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, d: int,
                         f"{values.device}, got {subtract_from.dtype} "
                         f"{tuple(subtract_from.shape)} on "
                         f"{subtract_from.device}")
-    if values.device.type == "cpu":
+    if values.device.type == "cpu" or is_fake(values):
         return dequantize_int8_reference(values, scales, subtract_from)
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")

@@ -10,12 +10,21 @@ so overlapped phases record where time went, not critical-path wall time.
 
 Drivers call ``begin_round(r)`` / ``end_round(r)`` around each round;
 ``end_round`` turns the phase and counter deltas since ``begin_round`` into
-one per-round record kept in a bounded ring buffer.
+one per-round record kept in a bounded ring buffer and, once
+``bind_flight`` bound one, flushed to a flight recorder
+(``fedml_tpu_torch/obs/flight.py``). Begin/end never touch RNG, schedules
+or device state: timelines are a pure observer. The record ``end_round``
+returns is also the roofline accountant's input (``obs/perf.py``).
+
+``profile(log_dir)`` wraps a :class:`TorchTrace`: a ``torch.profiler``
+window that records CUDA activity on a card (CPU activity alone on the
+CPU) and writes a Chrome trace into ``log_dir``; None is a no-op.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict, deque
@@ -34,6 +43,7 @@ class RoundTimer:
         #: (round_idx, t0, phase-totals, phase-counts, counters) snapshots
         #: of the open round
         self._open_round = None
+        self._flight = None
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
@@ -86,6 +96,13 @@ class RoundTimer:
         with self._lock:
             return self.counters["comm_bytes_down"]
 
+    def bind_flight(self, recorder) -> None:
+        """Flush every future ``end_round`` record through ``recorder`` (a
+        :class:`~fedml_tpu_torch.obs.flight.FlightRecorder`); None
+        unbinds."""
+        with self._lock:
+            self._flight = recorder
+
     def begin_round(self, round_idx: int) -> None:
         """Open round ``round_idx``: snapshot every phase/counter so
         ``end_round`` can attribute the deltas to this round. An
@@ -129,6 +146,9 @@ class RoundTimer:
             if extra:
                 rec.update(extra)
             self._rounds.append(rec)
+            flight = self._flight
+        if flight is not None:
+            flight.append(rec)  # file I/O outside the timer lock
         return rec
 
     def round_records(self) -> List[Dict]:
@@ -140,3 +160,68 @@ class RoundTimer:
         with self._lock:
             return {k: self.totals[k] / max(1, self.counts[k])
                     for k in self.totals}
+
+    def report(self) -> str:
+        out = " | ".join(f"{k}: {v * 1e3:.1f}ms"
+                         for k, v in sorted(self.means().items()))
+        with self._lock:
+            counters = dict(self.counters)
+            gauges = dict(self.gauges)
+        if counters:
+            out += " | " + " | ".join(
+                f"{k}: {v}" for k, v in sorted(counters.items()))
+        if gauges:
+            out += " | " + " | ".join(
+                f"{k}: {v:.1f}" for k, v in sorted(gauges.items()))
+        return out
+
+
+class TorchTrace:
+    """One ``torch.profiler`` window: ``start()`` opens it, ``stop()``
+    closes it and writes a Chrome trace to ``<log_dir>/trace.json``
+    (returned). On a CUDA card it records CUDA activity too, so the trace
+    names every kernel the window launched; on the CPU it records CPU
+    activity alone. ``profiler`` stays readable after ``stop()``
+    (``key_averages()``)."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = str(log_dir)
+        self.profiler = None
+        self.path: Optional[str] = None
+
+    def start(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile as _profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = _profile(activities=activities)
+        prof.__enter__()
+        self.profiler = prof
+
+    def stop(self) -> str:
+        import torch
+        if torch.cuda.is_available():
+            # the window's queued kernels land inside it
+            torch.cuda.synchronize()
+        self.profiler.__exit__(None, None, None)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(self.log_dir, "trace.json")
+        self.profiler.export_chrome_trace(self.path)
+        return self.path
+
+
+@contextlib.contextmanager
+def profile(log_dir: Optional[str] = None) -> Iterator[Optional[TorchTrace]]:
+    """``with profile('/tmp/trace') as trace:`` records a
+    :class:`TorchTrace` window into that directory; with None it is a
+    no-op that yields None (so call sites need no conditionals)."""
+    if log_dir is None:
+        yield None
+        return
+    trace = TorchTrace(log_dir)
+    trace.start()
+    try:
+        yield trace
+    finally:
+        trace.stop()

@@ -218,9 +218,9 @@ def test_kernel_calls_follow_the_schedule(monkeypatch, policy, quant,
     compressed broadcast the server's mirror advance and each silo's apply;
     under top-k + int8 the quantize launch also writes the error-feedback
     residual of the kept values (ops/sparsify.py), so no encode launches a
-    dequantize. At R = 5 and W = 10 that is 54 quantize and 94 dequantize
-    launches under both policies, what chip_smoke.py asserts on the
-    card."""
+    dequantize. At R = 3 and W = 10 that is 32 quantize and 52 dequantize
+    launches under both policies, what chip_smoke.py asserts on the card
+    (54 and 94 at R = 5)."""
     calls = _count_calls(monkeypatch)
     ds = make_blob_federated(**BLOB)
     rounds = 3
@@ -306,7 +306,7 @@ NOT_PORTED = [
     ("round_deadline_s", 1.0), ("heartbeat_s", 0.5), ("fault_plan", "drop"),
     ("server_checkpoint_dir", "/tmp/x"),
     ("checkpoint_sync", True), ("pace_steering", True),
-    ("join_rate_limit", 2.0), ("obs_dir", "/tmp/x"), ("job_id", "j"),
+    ("join_rate_limit", 2.0),
     ("serve_port", 8000), ("serving", object()), ("wan_trace", "t"),
     ("wan_profiles", "p"), ("wan", object()), ("comm_factory", print),
     ("device_gate", object())]
@@ -320,10 +320,11 @@ def test_unported_options_raise_and_name_their_item(name, value):
 
 
 @pytest.mark.parametrize("name", ["checkpoint_dir", "resume", "token",
-                                  "server_optimizer"])
+                                  "server_optimizer", "obs_dir", "job_id"])
 def test_formerly_refused_options_now_run(name, tmp_path):
     """The options the port ran without before: round checkpoints, resume,
-    the routed transport's token and the FedOpt server."""
+    the routed transport's token, the FedOpt server, and the flight
+    recorder with its job id (a pure observer: the same bits)."""
     from fedml_tpu_torch import native
     ds = make_blob_federated(**BLOB)
     run = dict(worker_num=2, comm_round=1, train_cfg=TrainConfig(**TRAIN),
@@ -345,6 +346,16 @@ def test_formerly_refused_options_now_run(name, tmp_path):
             final, _ = cs.run_fedavg_cross_silo(
                 ds, _lr(ds), backend="ROUTED", token=b"t",
                 addresses={"router": ("127.0.0.1", router.port)}, **run)
+    elif name in ("obs_dir", "job_id"):
+        from fedml_tpu_torch.obs import read_flight_log
+        job = {"job_id": "j"} if name == "job_id" else {}
+        final, _ = cs.run_fedavg_cross_silo(ds, _lr(ds), obs_dir=str(
+            tmp_path), **job, **run)
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            "flight_rank0.jsonl", "flight_rank1.jsonl", "flight_rank2.jsonl"]
+        ids = {r["job_id"] for rank in range(3) for r in read_flight_log(
+            str(tmp_path / f"flight_rank{rank}.jsonl"))}
+        assert ids == {"j"} if name == "job_id" else len(ids) == 1
     else:
         # one round of server SGD at lr 1 lands on FedAvg's average
         final, _ = cs.run_fedavg_cross_silo(ds, _lr(ds),

@@ -281,8 +281,7 @@ def test_main_runs_two_rounds_on_blob_cpu(tmp_path):
     assert np.isfinite(final["train_loss"])
 
 
-@pytest.mark.parametrize("flag", [
-    ["--backend", "spmd"], ["--obs_dir", "obs"]])
+@pytest.mark.parametrize("flag", [["--backend", "spmd"]])
 def test_unported_options_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_fedavg.main(["--device", "cpu", "--client_num_in_total", "4",
@@ -294,13 +293,16 @@ def test_unported_options_raise(flag, tmp_path):
     ["--fused_rounds", "4"], ["--client_optimizer", "adam"],
     # two epochs: every blob client's real step count is then even
     ["--accum_steps", "2", "--epochs", "2"],
-    ["--compute_dtype", "bfloat16"]])
+    ["--compute_dtype", "bfloat16"],
+    # the flight recorder, ported since the refusal this flag once hit
+    ["--obs_dir", "{tmp}/obs", "--job_id", "j"]])
 def test_ported_options_run(flag, tmp_path):
     final = main_fedavg.main([
         "--device", "cpu", "--client_num_in_total", "4",
         "--client_num_per_round", "2", "--comm_round", "2",
         "--frequency_of_the_test", "1", "--batch_size", "10",
-        "--lr", "0.1", "--run_dir", str(tmp_path)] + flag)
+        "--lr", "0.1", "--run_dir", str(tmp_path)]
+        + [f.format(tmp=tmp_path) for f in flag])
     assert [r["round"] for r in read_metrics(str(tmp_path))] == [0, 1]
     assert final["round"] == 1
     assert np.isfinite(final["train_loss"]) and np.isfinite(final["test_loss"])

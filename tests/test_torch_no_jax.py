@@ -25,6 +25,8 @@ from fedml_tpu_torch.models import create_model
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax)(\.|$)|^fedml_tpu(\.|$)")
+#: the JAX package under any module name, but not the port's own
+REFERENCE = re.compile(r"\bfedml_tpu(?!_torch)\b")
 
 _CHILD = r"""
 import importlib, json, pkgutil, sys
@@ -37,7 +39,11 @@ from fedml_tpu_torch.experiments.main_fedavg import main
 final = main(["--dataset", "blob", "--client_num_in_total", "4",
               "--client_num_per_round", "2", "--comm_round", "1",
               "--frequency_of_the_test", "1", "--batch_size", "16",
-              "--device", "cpu", "--run_dir", sys.argv[1]])
+              "--device", "cpu", "--run_dir", sys.argv[1],
+              "--obs_dir", sys.argv[1] + "/obs"])
+# the flight log through the port's own tools
+from fedml_tpu_torch.obs.__main__ import main as obs_main
+obs_rc = obs_main(["merge", sys.argv[1] + "/obs"])
 # one tiny transformer nwp round through the flash attention's CPU path
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
 from fedml_tpu_torch.data.synthetic import make_token_federated
@@ -153,6 +159,7 @@ for algo, extra in (("split_nn", ["--dataset", "blob", "--lr", "0.01"]),
         "--batch_size", "16", "--device", "cpu",
         "--run_dir", sys.argv[1] + "/" + algo]))
 print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
+                  "obs_rc": obs_rc,
                   "lm_tokens": float(stats["count"]),
                   "silo_rounds": [r["round"] for r in hist],
                   "algos": algos, "slice_c": slice_c}))
@@ -169,6 +176,7 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["round"] == 0
+    assert out["obs_rc"] == 0
     assert out["lm_tokens"] > 0
     assert out["silo_rounds"] == [0, 1, 0]
     assert sorted(out["algos"]) == sorted(
@@ -202,9 +210,13 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "comm.tcp", "comm.grpc_backend", "comm.grpc_proto",
               "comm.mqtt", "comm.routed", "native", "utils.checkpoint",
               "utils.context", "state.store", "state.residuals",
-              "algorithms.base_framework"):
+              "algorithms.base_framework", "obs", "obs.flight", "obs.merge",
+              "obs.perf", "obs.anomaly", "obs.registry", "obs.tail",
+              "obs.report", "obs.trend", "obs.__main__", "utils.flops",
+              "utils.fsio", "utils.watchdog", "utils.tracing"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
-    bad = [m for m in out["modules"] if FORBIDDEN.match(m)]
+    bad = [m for m in out["modules"] if FORBIDDEN.match(m)
+           or REFERENCE.search(m)]
     assert not bad, bad
 
 
