@@ -215,7 +215,30 @@
    a flight log a rank, a ``silo`` row a silo a round, ``obs merge``
    exiting 0; the fused block's ``cost_analysis`` over 2 rounds beside
    the host round's count (the padding-only steps' share). It prints
-   each round's mfu and round_flops and the phase's time.
+   each round's mfu and round_flops and the phase's time;
+30. fault tolerance (deadline rounds with eviction, heartbeats and JOIN,
+   the fault plan, the quorum and FedAsync servers): (a) the CNN over 10
+   in-process silos with ``delta_int8``, the buffered close through the
+   aggregation kernel, a deadline of 5x the measured round wall and
+   heartbeats at half of it; a seeded ``drop`` plan takes two silos'
+   round-1 replies, so round 1 closes at the deadline over 8 reports (one
+   kernel launch at C = 8), both silos are evicted and come back by JOIN
+   with a full-precision resync. The counts are set to 0 just before and
+   read just after: one aggregation launch a round at C = each round's
+   reporters, the int8 launches as the recorded broadcasts and replies
+   imply, each close within 1e-6 of the streaming fold, and every silo's
+   held model (the rejoined ones too) the server's mirror bit for bit at
+   FINISH. The same plan on the CNN (TF32 off, no heartbeats, so the
+   schedule is fixed, and no compression, whose stochastic rounding draws
+   from a generator on the device), 3 rounds of one full-batch step a
+   silo at lr 0.01 on the card (cuDNN's deterministic algorithms) and on
+   the CPU: the same rounds, the final models within 1e-5. (b)
+   ``fed_launch --algo fedavg_async --async_mode quorum --quorum 7`` on
+   the CNN with three round-1 replies dropped: ``partial_rounds`` [1].
+   (c) ``--async_mode fedasync``: 1 LR silo, 5 updates, card vs CPU
+   within 1e-5; then 4 CNN silos, ``update_log`` of ``max_updates``
+   entries, each mix ``alpha * (s + 1) ** -poly_a``. It prints the phase's
+   time.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -3643,6 +3666,13 @@ def phase_cross_silo_sockets_card_vs_cpu():
 
 
 OBS_R = 2  # rounds of the observed TCP federation (phase 29)
+#: rounds of the deadline run (phase 30): the evicted silos' JOIN comes 1.5-2
+#: deadlines (7.5-10 round walls) after round 1 opened, so they rejoined
+#: by round 7-9 on the H100 runs measured; 16 leaves the rest as margin
+FT_R = 16
+FT_DROPPED = (3, 7)  # the silos whose round-1 replies the plan drops
+QUORUM = 7  # the quorum server's count of 10 (phase 30b)
+ASYNC_UPDATES = 8  # FedAsync's budget on the CNN (phase 30c)
 
 
 def _obs_sim(parts, obs_dir=None, profile_round=None):
@@ -3823,6 +3853,322 @@ def phase_observability():
     return out
 
 
+def _drop_round1(ranks):
+    """A seeded plan that drops each listed silo's round-1 reply (its
+    endpoint's second reply)."""
+    return "seed=30;" + ";".join(
+        f"drop:direction=send,sender={r},msg_type=4,after=1,max_count=1"
+        for r in ranks)
+
+
+def _recording_server():
+    """The deadline server, recording each broadcast: its round, whether
+    it went out compressed, and to how many silos (the live set)."""
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.comm.compression import is_compressed
+
+    class Recorded(cs.FedAvgServerManager):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.bcasts = []
+
+        def _encode_broadcast(self):
+            out = super()._encode_broadcast()
+            self.bcasts.append((self.round_idx, is_compressed(out),
+                                len(self.liveness.live_workers())))
+            return out
+    return Recorded
+
+
+def _deadline_path(silos):
+    """Phase 30a: the CNN's deadline run on the card, with its counts."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.ops import quantize as tq
+    from fedml_tpu_torch.utils.tracing import RoundTimer
+
+    ds, model, task, tc = _main_api_parts()
+    recorded = _recording_server()
+    closes, fold_diffs = [], []
+
+    def kernel_close(stacked, weights):
+        out = aggregate.tree_weighted_mean_fused(stacked, weights)
+        fold = cs.FedAvgAggregator(int(weights.shape[0]))
+        for i, w in enumerate(weights.tolist()):
+            fold.add_local_trained_result(
+                i, {k: v[i] for k, v in stacked.items()}, w)
+        closes.append(int(weights.shape[0]))
+        fold_diffs.append(_max_diff(out, fold.aggregate()))
+        return out
+
+    def run(rounds, plan=None, deadline=None, heartbeat_s=0.0):
+        def factory(size, com, _agg, global_model, on_round_done):
+            return recorded(
+                0, size, com, cs.FedAvgAggregator(
+                    size - 1, aggregate_fn=kernel_close), rounds,
+                ds.client_num, global_model, on_round_done=on_round_done,
+                compression="delta_int8", round_deadline_s=deadline)
+        timer = RoundTimer()
+        final, hist, server = cs.launch_federation(
+            ds, model, task, silos, tc, factory, compression="delta_int8",
+            heartbeat_s=heartbeat_s, fault_plan=plan, timer=timer,
+            device="cuda", join_timeout_s=300)
+        torch.cuda.synchronize()
+        return final, hist, server, timer
+
+    # the round wall the deadline is sized from (no faults, warm)
+    _, _, _, warm = run(2)
+    wall = warm.round_records()[1]["duration_s"]
+    deadline = max(5.0 * wall, 1.0)
+    closes.clear()
+    fold_diffs.clear()
+    held = {}
+    finish = cs.FedAvgClientManager._handle_finish
+
+    def keep_held(self, msg):
+        held[self.rank] = {k: v.clone() for k, v in self._held.items()}
+        finish(self, msg)
+    cs.FedAvgClientManager._handle_finish = keep_held
+    aggregate.weighted_mean_flat.launches = 0
+    tq.quantize_int8.launches = 0
+    tq.dequantize_int8.launches = 0
+    t = time.perf_counter()
+    try:
+        final, hist, server, timer = run(FT_R, _drop_round1(FT_DROPPED),
+                                         deadline, deadline / 2)
+    finally:
+        cs.FedAvgClientManager._handle_finish = finish
+    wall_s = time.perf_counter() - t
+    launches = {"aggregate": aggregate.weighted_mean_flat.launches,
+                "quant": tq.quantize_int8.launches,
+                "dequant": tq.dequantize_int8.launches}
+    rows = server.live_history
+    reported = [len(h["reported"]) for h in rows]
+    survivors = sorted(set(range(silos)) - {r - 1 for r in FT_DROPPED})
+    if len(rows) != FT_R or rows[1]["reported"] != survivors \
+            or not rows[1]["partial"]:
+        raise AssertionError(f"deadline run: rounds {rows}")
+    if closes != reported or launches["aggregate"] != FT_R:
+        raise AssertionError(f"deadline run: aggregation launches "
+                             f"{launches['aggregate']} at C = {closes}, the "
+                             f"rounds' reporters {reported}")
+    if not max(fold_diffs) <= 1e-6:
+        raise AssertionError(f"deadline run: the kernel's closes against "
+                             f"the streaming fold: {fold_diffs}")
+    counters = {k: int(timer.counters[f"ft_{k}"]) for k in (
+        "evictions", "rejoins", "join_resyncs", "partial_rounds",
+        "stale_replies", "deadline_extensions", "faults_injected",
+        "heartbeats")}
+    if server.liveness.live_workers() != set(range(silos)) or \
+            counters["evictions"] != 2 or counters["rejoins"] != 2:
+        raise AssertionError(f"deadline run: live at the end "
+                             f"{sorted(server.liveness.live_workers())}, "
+                             f"{counters}")
+    sent = sum(n for _, _, n in server.bcasts) + counters["join_resyncs"]
+    if sum(reported) != sent - len(FT_DROPPED) - counters["stale_replies"]:
+        raise AssertionError(f"deadline run: {sum(reported)} replies folded "
+                             f"of {sent} sent")
+    compressed = [n for _, c, n in server.bcasts if c]
+    _check_launches("deadline run", {k: launches[k] for k in (
+        "quant", "dequant")}, {
+            "quant": sent + len(compressed),
+            "dequant": sum(reported) + sum(1 + n for n in compressed)})
+    bad = [r for r in range(1, silos + 1) if r not in held or not all(
+        _same_bits(held[r][k], server._mirror[k]) for k in server._mirror)]
+    if bad:
+        raise AssertionError(f"deadline run: silos {bad} do not hold the "
+                             "mirror at FINISH")
+    _check_evals("deadline run", hist, list(range(FT_R)), falls=False)
+    rejoin = next(h["round"] for h in rows[2:] if len(h["reported"]) == silos)
+    log(f"deadline run ({_smi()}): CNN, 10 silos, delta_int8, round wall "
+        f"{wall:.4f} s -> deadline {deadline:.3f} s, heartbeat "
+        f"{deadline / 2:.3f} s; round 1 closed at the deadline over "
+        f"{reported[1]} reports, silos {list(FT_DROPPED)} evicted, rejoined "
+        f"by round {rejoin} with a full resync; C a round {closes}; "
+        f"launches {launches}, as the schedule implies ({len(compressed)} "
+        f"compressed broadcasts, {sent} replies sent, {sum(reported)} "
+        f"folded); the kernel vs the fold {max(fold_diffs):.3g}; every "
+        f"silo holds the mirror bit for bit; {counters}; {wall_s:.1f} s")
+    return {"launches": launches, "close_c": closes, "wall_s": wall_s,
+            "round_wall_s": wall, "deadline_s": deadline,
+            "rejoin_round": rejoin, "counters": counters,
+            "broadcasts": server.bcasts,
+            "max_abs_diff_to_fold": max(fold_diffs)}
+
+
+def _deadline_card_vs_cpu(silos):
+    """Phase 30a's plan on the CNN at full width, TF32 off, on the card
+    (cuDNN's deterministic algorithms) and on the CPU: no heartbeats, so
+    the evicted silos stay out and the schedule is fixed (round 1 closes
+    at its deadline over 8 reports through the buffered close, round 2
+    over the 8 live silos). Round 1's deadline is 3x round 0's wall on
+    each device. Each silo takes one full-batch step a round at lr 0.01:
+    a convolution's weight gradient sums 10^4-10^5 products an entry in
+    f32, in another order on the card than on the CPU, so at the main
+    path's lr 0.1 one round parts the two by more than 1e-5 (and the
+    rounds after it compound that). No compression: the int8
+    codec's stochastic rounding draws from a generator on the device,
+    whose stream differs between the card and the CPU; the int8 chain is
+    held by the mirror check above and by phase 6."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.ops import aggregate
+
+    ds, model, task, tc = _main_api_parts()
+    tc = dataclasses.replace(tc, batch_size=None, lr=0.01)
+    xt, yt = ds.test_data_global
+    # the eval is not what is compared: a cut test set keeps the CPU's
+    # rounds short
+    ds = dataclasses.replace(ds, test_data_global=(xt[:1000], yt[:1000]))
+
+    class Sized(cs.FedAvgServerManager):
+        def _close_round(self, partial=False):
+            if self.round_idx == 0:
+                self.round_deadline_s = max(
+                    3.0 * (time.monotonic() - self._bcast_at), 1.0)
+            super()._close_round(partial=partial)
+
+    def factory(size, com, _agg, global_model, on_round_done):
+        return Sized(0, size, com, cs.FedAvgAggregator(
+            size - 1, aggregate_fn=aggregate.tree_weighted_mean_fused),
+            3, ds.client_num, global_model, on_round_done=on_round_done,
+            round_deadline_s=600.0)
+
+    def run(dev):
+        t = time.perf_counter()
+        final, _, server = cs.launch_federation(
+            ds, model, task, silos, tc, factory,
+            fault_plan=_drop_round1(FT_DROPPED), device=dev,
+            join_timeout_s=300)
+        return (final, [(h["reported"], h["partial"])
+                        for h in server.live_history],
+                time.perf_counter() - t)
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = _deterministic(lambda: run("cuda"))
+        cpu = run("cpu")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    survivors = sorted(set(range(silos)) - {r - 1 for r in FT_DROPPED})
+    # a close over fewer than every silo is partial, round 2's too
+    want = [(list(range(silos)), False), (survivors, True),
+            (survivors, True)]
+    diff = _max_diff(card[0], cpu[0])
+    if card[1] != want or cpu[1] != want or not diff <= 1e-5:
+        raise AssertionError(f"deadline CNN run card vs CPU: rounds "
+                             f"{card[1]} / {cpu[1]}, max abs diff {diff}")
+    log(f"deadline CNN run (10 silos, 2 round-1 replies dropped, 3 rounds "
+        f"of one full-batch step at lr 0.01, the buffered close at C = 8), "
+        f"card vs CPU: max abs param diff {diff:.3g} (atol 1e-5), the same "
+        f"rounds; {card[2]:.1f} s on the card, {cpu[2]:.1f} s on the CPU")
+    return {"max_abs_diff": diff,
+            "wall_s": {"cuda": card[2], "cpu": cpu[2]}}
+
+
+def _quorum_path(deadline):
+    """Phase 30b: the quorum server through fed_launch on the CNN."""
+    from fedml_tpu_torch.experiments import fed_launch
+    final, launches, _, _, wall = _launch_run(fed_launch, [
+        "--algo", "fedavg_async", *MAIN_FLAGS, "--async_mode", "quorum",
+        "--quorum", str(QUORUM), "--comm_round", "3",
+        "--round_deadline_s", str(deadline),
+        "--fault_plan", _drop_round1((2, 5, 9))], "chip_smoke/ft_quorum")
+    if final["partial_rounds"] != [1] or final["round"] != 2 \
+            or not math.isfinite(final["test_loss"]):
+        raise AssertionError(f"quorum run: {final}")
+    log(f"fed_launch fedavg_async quorum {QUORUM} of 10 (CNN, 3 round-1 "
+        f"replies dropped, deadline {deadline:.3f} s): partial_rounds "
+        f"{final['partial_rounds']}, test loss {final['test_loss']:.4f}, "
+        f"{wall:.1f} s")
+    return {"partial_rounds": final["partial_rounds"], "wall_s": wall,
+            "aggregation_launches": launches}
+
+
+def _fedasync_paths():
+    """Phase 30c: FedAsync through fed_launch: one LR silo on the card and
+    on the CPU, then four CNN silos."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_async as pasync
+    from fedml_tpu_torch.experiments import fed_launch
+
+    run, out = pasync.run_fedavg_async, {}
+
+    def keep(*a, **kw):
+        result = run(*a, **kw)
+        out[kw["device"]] = result
+        return result
+    pasync.run_fedavg_async = keep
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            fed_launch.main([
+                "--algo", "fedavg_async", "--async_mode", "fedasync",
+                "--dataset", "blob", "--client_num_in_total", "4",
+                "--client_num_per_round", "1", "--max_updates", "5",
+                "--batch_size", "16", "--lr", "0.1", "--device", dev,
+                "--run_dir", os.path.join(ROOT, "runs", "chip_smoke",
+                                          f"ft_fedasync_lr_{dev}")])
+        lr_logs = {d: out[d][2].update_log for d in out}
+        diff = _max_diff(out["cuda"][0], out["cpu"][0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        t = time.perf_counter()
+        fed_launch.main(["--algo", "fedavg_async", *MAIN_FLAGS,
+                         "--client_num_per_round", "4", "--async_mode",
+                         "fedasync", "--max_updates", str(ASYNC_UPDATES),
+                         "--run_dir", os.path.join(ROOT, "runs", "chip_smoke",
+                                                   "ft_fedasync_cnn")])
+        torch.cuda.synchronize()
+        cnn_s = time.perf_counter() - t
+    finally:
+        pasync.run_fedavg_async = run
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    if lr_logs["cuda"] != lr_logs["cpu"] or not diff <= 1e-5:
+        raise AssertionError(f"FedAsync LR silo card vs CPU: {diff}, logs "
+                             f"{lr_logs}")
+    server = out["cuda"][2]
+    log_ = server.update_log
+    bad = [u for u in log_ if u["mix"] != server.alpha * (
+        u["staleness"] + 1) ** -server.poly_a]
+    if len(log_) != ASYNC_UPDATES or bad or server.version != ASYNC_UPDATES:
+        raise AssertionError(f"FedAsync CNN run: update_log {log_}")
+    for k, v in out["cuda"][0].items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"FedAsync CNN run: {k} is not finite")
+    log(f"fed_launch fedavg_async fedasync: 1 LR silo, 5 updates, card vs "
+        f"CPU max abs diff {diff:.3g} (atol 1e-5); 4 CNN silos, "
+        f"{len(log_)} updates, staleness "
+        f"{[u['staleness'] for u in log_]}, each mix alpha*(s+1)^-poly_a, "
+        f"{cnn_s:.1f} s")
+    return {"lr_card_vs_cpu_max_abs_diff": diff,
+            "cnn_update_log": log_, "cnn_s": cnn_s}
+
+
+def phase_fault_tolerance():
+    """Phase 30: deadline rounds with eviction, heartbeats and JOIN under a
+    seeded fault plan, then the quorum and FedAsync servers."""
+    t0 = time.perf_counter()
+    silos = HEADLINE[0]
+    deadline = _deadline_path(silos)
+    out = {"deadline": deadline,
+           "deadline_card_vs_cpu": _deadline_card_vs_cpu(silos),
+           "quorum": _quorum_path(deadline["deadline_s"]),
+           "fedasync": _fedasync_paths()}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 30 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _build_each_federation_once() -> None:
     """Each generated federation is built once in a run and handed to every
     later entry-point call with the same arguments: the builders are pure
@@ -3883,6 +4229,7 @@ def main() -> None:
     record["sockets_s"] = time.perf_counter() - t_sockets
     log(f"phases 27-28 took {record['sockets_s']:.1f} s")
     record["observability"] = phase_observability()
+    record["fault_tolerance"] = phase_fault_tolerance()
     k = record["kernel"]
     zoo = record["zoo_models"]
     kernels = [{
@@ -3917,6 +4264,10 @@ def main() -> None:
         "launches_buffered_close":
             record["sockets"]["buffered_close"]["launches"],
         "launches_obs": record["observability"]["sim"]["launches"],
+        "launches_deadline":
+            record["fault_tolerance"]["deadline"]["launches"]["aggregate"],
+        "deadline_close_c":
+            record["fault_tolerance"]["deadline"]["close_c"],
         "launches_slice_f": {
             **{a: record["split_vertical_paths"][a]["launches"]
                for a in ("vertical_fl", "split_nn")},
@@ -3966,6 +4317,8 @@ def main() -> None:
             "launches_resume": record["sockets"]["resume"]["launches"][kern],
             "launches_obs":
                 record["observability"]["silo"]["launches"][kern],
+            "launches_deadline":
+                record["fault_tolerance"]["deadline"]["launches"][kern],
             "max_abs_err": record["quant"]["max_abs_err"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -50,17 +50,35 @@ port's ``derive_seed`` chain with the JAX package's tags: uplink
 ``(977, round, rank)``, downlink ``(1733, broadcast seq)``. Local
 training seeds are the simulation's ``round_keys``.
 
-Not ported yet, each raising ``NotImplementedError`` when set:
-deadline/quorum rounds and fault tolerance, the control plane, serving,
-the WAN world and the multi-job scheduler hooks (see ROADMAP Slice D).
+Fault tolerance (``round_deadline_s``): the all-received barrier is taken
+against the live silo set (a :class:`SiloLivenessTable` beaten by every
+inbound silo message). When the round's deadline passes with at least
+``ceil(min_quorum_frac * live)`` reports, the round closes with the
+weighted partial aggregate over the reporters and the silos that did not
+report are evicted; below quorum the deadline extends, at most
+``max_deadline_extensions`` times a round before the schedule fails
+loudly (:class:`~fedml_tpu_torch.control.SchedulingStallError`). The
+deadline is a self-addressed TIMEOUT message that rides the receive loop,
+so the server's state machine stays on one thread. With ``heartbeat_s``
+idle silos beat the server and, after ``3 * heartbeat_s`` of server
+silence, send JOIN; the server re-admits an evicted silo with a
+full-precision resync of the mirror, so the compressed downlink chain
+stays coherent. ``fault_plan`` wraps every endpoint in the seeded fault
+injector (``comm/faults.py``).
+
+Not ported yet, each raising ``NotImplementedError`` when set: the
+control plane and serving (item 23), the WAN world (22f) and the
+multi-job scheduler hooks (22g) (see ROADMAP Slice D).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 import threading
 import time
+from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -68,6 +86,7 @@ import torch
 
 from fedml_tpu_torch.comm import (ClientManager, Message, ServerManager,
                                   create_comm_manager)
+from fedml_tpu_torch.comm.faults import parse_fault_plan
 from fedml_tpu_torch.comm.compression import (compress_for_policy,
                                               decompress, is_compressed,
                                               to_numpy, tree_fingerprint,
@@ -89,12 +108,27 @@ from fedml_tpu_torch.trainer.functional import (TrainConfig,
                                                 validate_accum_steps)
 from fedml_tpu_torch.utils.device import resolve_device, synchronize
 from fedml_tpu_torch.utils.tracing import RoundTimer
+from fedml_tpu_torch.utils.watchdog import SiloLivenessTable
 
 # -- message schema (reference message_define.py) ---------------------------
 MSG_TYPE_S2C_INIT_CONFIG = 1
 MSG_TYPE_S2C_SYNC_MODEL = 2
 MSG_TYPE_S2C_FINISH = 3
 MSG_TYPE_C2S_SEND_MODEL = 4
+#: the self-addressed deadline tick: the deadline servers' timer posts it,
+#: so the state machine stays on the receive thread
+MSG_TYPE_ROUND_TIMEOUT = 9
+#: a periodic proof of life from an idle silo; every inbound silo message
+#: (replies included) also beats the server's liveness table
+MSG_TYPE_C2S_HEARTBEAT = 10
+#: an evicted or restarted silo asking back in: the server re-admits it
+#: with a full-precision resync of the mirror
+MSG_TYPE_C2S_JOIN = 11
+#: the server refused a JOIN's resync for now (the JAX package's JOIN
+#: admission control, ROADMAP item 23, sends it; the port's server does
+#: not yet); carries ``retry_after_s``, and the silo defers its next JOIN
+#: by that long (its heartbeats keep beating)
+MSG_TYPE_S2C_JOIN_BACKPRESSURE = 12
 
 MSG_ARG_KEY_MODEL_PARAMS = Message.MSG_ARG_KEY_MODEL_PARAMS
 MSG_ARG_KEY_NUM_SAMPLES = Message.MSG_ARG_KEY_NUM_SAMPLES
@@ -107,6 +141,10 @@ MSG_ARG_KEY_BASE_SEQ = "base_seq"
 #: structure fingerprint of the silo's held model: a mismatch makes the
 #: server broadcast full precision
 MSG_ARG_KEY_BASE_FP = "base_fp"
+#: JOIN payload: the rounds the (re)joining silo completed before it left
+MSG_ARG_KEY_ROUNDS_COMPLETED = "rounds_completed"
+#: BACKPRESSURE payload: seconds until the silo may JOIN again
+MSG_ARG_KEY_RETRY_AFTER = "retry_after_s"
 #: observability piggyback (fedml_tpu_torch/obs): the compact counter
 #: digest a silo attaches to its replies when the flight recorder is on;
 #: the server turns it into per-silo rows in ITS flight log. Absent in
@@ -284,8 +322,8 @@ class FedAvgAggregator:
 
 
 class FedAvgServerManager(ServerManager):
-    """Round-based cross-silo server with the strict all-received
-    barrier.
+    """Round-based cross-silo server, with the strict all-received barrier
+    by default.
 
     ``checkpoint_mgr`` (a ``utils.checkpoint.CheckpointManager``) saves
     :meth:`_checkpoint_state` after every round, keyed by rounds
@@ -294,14 +332,29 @@ class FedAvgServerManager(ServerManager):
     derive from the round index, so the continuation is the uninterrupted
     run's, bit for bit, when the downlink is not compressed (a resumed
     federation starts without the silos' mirror, so its first broadcast is
-    full precision)."""
+    full precision).
+
+    Fault tolerance (``round_deadline_s``): the barrier is taken against
+    the live set; at the deadline, with at least ``ceil(min_quorum_frac *
+    live)`` reports, the round closes with the weighted partial aggregate
+    and the live silos that did not report are evicted (their
+    ``_worker_base`` is forgotten, and the mass of a reply that never
+    arrived, error-feedback residual included, is lost). Broadcasts go to
+    the live set only; an evicted silo comes back through JOIN and a
+    full-precision resync of the mirror. Below quorum the deadline extends,
+    at most ``max_deadline_extensions`` times a round (``None``: forever),
+    each extension a ``deadline_extension`` anomaly in the flight log.
+    Without ``round_deadline_s`` the strict barrier is unchanged."""
 
     def __init__(self, rank: int, size: int, com_manager,
                  aggregator: FedAvgAggregator, comm_round: int,
                  client_num_in_total: int, global_model,
                  on_round_done=None, checkpoint_mgr=None,
                  resume: bool = False, compression=None,
-                 timer: Optional[RoundTimer] = None):
+                 timer: Optional[RoundTimer] = None,
+                 round_deadline_s: Optional[float] = None,
+                 min_quorum_frac: float = 0.5,
+                 max_deadline_extensions: Optional[int] = 25):
         super().__init__(rank, size, com_manager)
         self._device_lock = _DEVICE_LOCK
         self.aggregator = aggregator
@@ -325,6 +378,33 @@ class FedAvgServerManager(ServerManager):
         #: when the open round's broadcast went out: the origin of every
         #: reply's report latency
         self._bcast_at: Optional[float] = None
+        # -- fault tolerance (liveness, deadline, eviction, rejoin) ---------
+        if not 0.0 < min_quorum_frac <= 1.0:
+            raise ValueError(f"min_quorum_frac must be in (0, 1], got "
+                             f"{min_quorum_frac}")
+        self.round_deadline_s = round_deadline_s
+        self.min_quorum_frac = min_quorum_frac
+        #: deadline eviction on (False: the strict barrier; the quorum
+        #: server reuses the timer with its own close policy)
+        self._evict_on_deadline = bool(round_deadline_s
+                                       and round_deadline_s > 0)
+        self.liveness = SiloLivenessTable(range(self.worker_num))
+        #: one {round, reported, live, partial} record a round (FT mode)
+        self.live_history: List[Dict] = []
+        self.ft_counters: Dict[str, int] = defaultdict(int)
+        #: the armed deadline timer; arming, cancelling and ``finish`` take
+        #: the lock, so no timer outlives the server
+        self._timer: Optional[threading.Timer] = None
+        self._timer_lock = threading.Lock()
+        self._finished = False
+        #: worker -> round of its last JOIN resync: one full-precision
+        #: resync a silo a round, however often it retries JOIN
+        self._resynced_round: Dict[int, int] = {}
+        self._max_extensions = max_deadline_extensions
+        self._extensions_this_round = 0
+        #: set (with a FINISH sweep) when the schedule cannot make
+        #: progress; launch_federation raises it
+        self.scheduling_error: Optional[Exception] = None
         # -- downlink compression state (comm/policy.py) --------------------
         self._policy = resolve_compression(compression)
         self._bcast_seq = -1
@@ -350,10 +430,12 @@ class FedAvgServerManager(ServerManager):
     def _load_state(self, state) -> None:
         self.global_model = state["variables"]
 
-    def _aggregate_round(self):
-        """Close the round: the sample-weighted average; FedOpt steps its
-        server optimizer on it."""
-        return self.aggregator.aggregate()
+    def _aggregate_round(self, partial: bool = False):
+        """Close the round: the sample-weighted average (over whichever
+        workers reported when ``partial``); FedOpt steps its server
+        optimizer on it."""
+        return (self.aggregator.aggregate_available() if partial
+                else self.aggregator.aggregate())
 
     def send_init_msg(self) -> None:
         if self.round_idx >= self.comm_round:
@@ -365,23 +447,94 @@ class FedAvgServerManager(ServerManager):
         # the mirror is unset, so the first broadcast (of a resumed run
         # too) is full precision
         self._broadcast_model(MSG_TYPE_S2C_INIT_CONFIG, idxs)
+        self._arm_deadline()
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(
             MSG_TYPE_C2S_SEND_MODEL,
             self.handle_message_receive_model_from_client)
+        self.register_message_receive_handler(
+            MSG_TYPE_ROUND_TIMEOUT, self.handle_round_timeout)
+        self.register_message_receive_handler(
+            MSG_TYPE_C2S_HEARTBEAT, self.handle_message_heartbeat)
+        self.register_message_receive_handler(
+            MSG_TYPE_C2S_JOIN, self.handle_message_join)
+
+    def receive_message(self, msg_type: int, msg: Message) -> None:
+        # every inbound silo message is proof of life: a silo in local
+        # training proves it with its reply, an idle one with heartbeats
+        sender = msg.get_sender_id()
+        if sender != self.rank:
+            self.liveness.beat(sender - 1)
+        super().receive_message(msg_type, msg)
+
+    # -- the deadline timer --------------------------------------------------
+    def _arm_deadline(self) -> None:
+        """Post a self-addressed TIMEOUT tick ``round_deadline_s`` from now
+        (a no-op without a deadline or after ``finish``). The timer thread
+        touches no protocol state: the tick rides the receive loop."""
+        if not self.round_deadline_s:
+            return
+        round_idx = self.round_idx
+
+        def fire():
+            tick = Message(MSG_TYPE_ROUND_TIMEOUT, self.rank, self.rank)
+            tick.add(MSG_ARG_KEY_ROUND, round_idx)
+            try:
+                self.send_message(tick)
+            except OSError as exc:  # the backend is already shut down
+                logging.debug("round-%d deadline tick not delivered (%r)",
+                              round_idx, exc)
+
+        with self._timer_lock:
+            if self._timer is not None:
+                self._timer.cancel()
+                self._timer = None
+            if self._finished:
+                return
+            self._timer = threading.Timer(self.round_deadline_s, fire)
+            self._timer.daemon = True
+            self._timer.start()
+
+    def _cancel_deadline(self, final: bool = False) -> None:
+        """Cancel the armed tick; ``final`` also refuses every later arm."""
+        with self._timer_lock:
+            self._finished = self._finished or final
+            if self._timer is not None:
+                self._timer.cancel()
+                self._timer = None
+
+    def finish(self) -> None:
+        self._cancel_deadline(final=True)
+        super().finish()
 
     def _finish_federation(self) -> None:
-        """FINISH every silo and stop the server loop."""
+        """FINISH every silo (evicted ones too: a send to a dead peer is
+        logged, not fatal) and stop the server loop."""
         for worker in range(1, self.size):
-            self.send_message(Message(MSG_TYPE_S2C_FINISH, self.rank, worker))
+            try:
+                self.send_message(
+                    Message(MSG_TYPE_S2C_FINISH, self.rank, worker))
+            except OSError as exc:
+                logging.warning("FINISH to silo %d failed (%r): the peer "
+                                "is gone", worker, exc)
         self.finish()
+
+    def _fail_schedule(self, reason: str) -> None:
+        """A terminal scheduling failure: FINISH every silo and keep the
+        error for the launcher to raise."""
+        from fedml_tpu_torch.control import SchedulingStallError
+        self.scheduling_error = SchedulingStallError(reason)
+        logging.error("%s", self.scheduling_error)
+        self._finish_federation()
 
     # -- downlink compression (comm/policy.py, comm/compression.py) ---------
     def _silos_in_sync(self) -> bool:
         """True iff some silo has confirmed a base and every reported (seq,
         fingerprint) matches the mirror: a shared compressed broadcast is
-        only decodable when every silo holds the same mirror."""
+        only decodable when every silo holds the same mirror. A silo that
+        missed a broadcast (a deadline straggler, a dropped frame) reports
+        an older seq and costs one full-precision rebase."""
         if not self._worker_base:
             return False
         for worker, (seq, fp) in self._worker_base.items():
@@ -425,7 +578,9 @@ class FedAvgServerManager(ServerManager):
         return payload
 
     def _broadcast_model(self, msg_type: int, idxs) -> None:
-        """One shared payload (full or mirror delta) to every silo."""
+        """One shared payload (full or mirror delta) to every silo; with
+        deadline eviction to the live set only, a peer whose send fails
+        evicted instead of ending the server loop."""
         tm = self.round_timer
         # the flight-recorder round boundary: snapshot the counters so
         # _close_round's end_round attributes deltas to THIS round, and
@@ -436,11 +591,14 @@ class FedAvgServerManager(ServerManager):
         with tm.phase("bcast_encode"):
             payload = self._encode_broadcast()
         self._round_cohort = [int(idxs[w - 1]) for w in range(1, self.size)]
+        live = self.liveness.live_workers()
         # one encode for the whole fan-out: each per-peer frame splices
         # the cached buffers and adds only its envelope keys
         shared = SharedPayload(payload)
         msgs = []
         for worker in range(1, self.size):
+            if self._evict_on_deadline and (worker - 1) not in live:
+                continue
             msg = Message(msg_type, self.rank, worker)
             msg.add(MSG_ARG_KEY_MODEL_PARAMS, shared)
             msg.add(MSG_ARG_KEY_CLIENT_INDEX, int(idxs[worker - 1]))
@@ -449,8 +607,20 @@ class FedAvgServerManager(ServerManager):
             msgs.append(msg)
         t0 = time.monotonic()
         self._bcast_at = t0
-        self.com_manager.broadcast(msgs)
+        self.com_manager.broadcast(msgs, on_error=(
+            self._on_broadcast_send_error if self._evict_on_deadline
+            else None))
         tm.gauge("bcast_fanout_ms", (time.monotonic() - t0) * 1e3)
+
+    def _on_broadcast_send_error(self, worker_rank: int, exc) -> None:
+        """A peer's broadcast failed after its transport retries: evict it
+        (may run on a writer thread; the table locks itself)."""
+        if self.liveness.evict(worker_rank - 1):
+            self._worker_base.pop(worker_rank - 1, None)
+            logging.warning(
+                "broadcast to silo %d failed after transport retries (%r): "
+                "evicted from the live set; it re-admits via JOIN",
+                worker_rank, exc)
 
     def _note_worker_base(self, msg: Message) -> None:
         params = msg.get_params()
@@ -467,36 +637,74 @@ class FedAvgServerManager(ServerManager):
         base = self._mirror if self._mirror is not None else self.global_model
         return decompress(payload, base)
 
-    def _record_silo_row(self, msg: Message, worker: int) -> None:
-        """The per-silo flight row of a reply: the server-measured report
-        latency plus the digest the silo piggybacked (the cross-process
-        half of the merged round timeline)."""
+    def _report_latency(self, msg: Message, worker: int) -> None:
+        """The reply's report latency into the liveness table (a resync's
+        reply measures the outage, not the silo's pace, and is left out),
+        and with observability on the per-silo flight row with the digest
+        the silo piggybacked."""
+        latency = (time.monotonic() - self._bcast_at
+                   if self._bcast_at is not None else None)
+        if latency is not None \
+                and self._resynced_round.get(worker) != self.round_idx:
+            self.liveness.observe_report_latency(worker, latency)
+        if self.obs is None:
+            return
         row = {"kind": "silo", "round": int(self.round_idx),
                "silo_rank": int(worker + 1), "event": "reply"}
         digest = msg.get_params().get(MSG_ARG_KEY_OBS_DIGEST)
         if digest is not None:
             row["digest"] = digest
-        if self._bcast_at is not None:
-            row["report_latency_s"] = round(
-                time.monotonic() - self._bcast_at, 6)
+        if latency is not None:
+            row["report_latency_s"] = round(latency, 6)
         self.obs.recorder.append(row)
 
     def handle_message_receive_model_from_client(self, msg: Message) -> None:
         worker = msg.get_sender_id() - 1
         self._note_worker_base(msg)
-        if self.obs is not None:
-            self._record_silo_row(msg, worker)
+        if self._evict_on_deadline:
+            r = msg.get_params().get(MSG_ARG_KEY_ROUND, self.round_idx)
+            if r != self.round_idx:
+                # a straggler's reply to a closed round is stale against
+                # the advanced global: discard it (the silo stays live)
+                self.ft_counters["stale_replies"] += 1
+                return
+            if self.liveness.admit(worker):
+                logging.info("silo %d re-admitted on a live round-%d reply",
+                             worker + 1, r)
+        self._report_latency(msg, worker)
         tm = self.round_timer
-        with self._device_lock, tm.phase("decode"):
-            payload = self._decode_model_payload(
-                msg.get(MSG_ARG_KEY_MODEL_PARAMS))
-            synchronize(self.device)
+        try:
+            with self._device_lock, tm.phase("decode"):
+                payload = self._decode_model_payload(
+                    msg.get(MSG_ARG_KEY_MODEL_PARAMS))
+                synchronize(self.device)
+        except (ValueError, KeyError):
+            if not self._evict_on_deadline:
+                raise
+            # a corrupted frame the payload guards refused (a structure
+            # fingerprint, a count or an index out of range; a missing
+            # field): drop the reply, poison the silo's reported base so
+            # the next broadcast is full precision, and let the deadline
+            # close the round. A kernel's or the card's error is not a
+            # frame's: it propagates and fails the launch
+            self.ft_counters["corrupt_frames"] += 1
+            self._worker_base[worker] = (-2, "corrupt-frame")
+            logging.warning(
+                "silo %d round-%d reply failed to decode: dropping the "
+                "reply and forcing a full-precision rebase", worker + 1,
+                self.round_idx, exc_info=True)
+            return
         t0 = time.monotonic()
         with self._device_lock, tm.phase("fold"):
             self.aggregator.add_local_trained_result(
                 worker, payload, msg.get(MSG_ARG_KEY_NUM_SAMPLES))
             synchronize(self.device)
         tm.gauge("agg_fold_ms", (time.monotonic() - t0) * 1e3)
+        if self._evict_on_deadline:
+            reported = self.aggregator.reported_set()
+            if self.liveness.live_workers() <= reported:
+                self._close_round(partial=len(reported) < self.worker_num)
+            return
         if self.aggregator.check_whether_all_receive():
             self._close_round()
 
@@ -515,14 +723,24 @@ class FedAvgServerManager(ServerManager):
         if d_up:
             tm.count("comm_bytes_up", d_up)
 
-    def _close_round(self) -> None:
-        """Aggregate, evaluate, then broadcast the next round or FINISH."""
+    def _close_round(self, partial: bool = False) -> None:
+        """Aggregate (in full, or the weighted partial close), evaluate,
+        then broadcast the next round or FINISH. Shared by the strict
+        barrier, the deadline close and the quorum server."""
+        self._cancel_deadline()
         tm = self.round_timer
         reported = sorted(self.aggregator.reported_set())
+        live = sorted(self.liveness.live_workers())
+        if self._evict_on_deadline:
+            self.live_history.append({"round": self.round_idx,
+                                      "reported": reported, "live": live,
+                                      "partial": bool(partial)})
+            if partial:
+                self.ft_counters["partial_rounds"] += 1
         buffered_peak = self.aggregator.buffered_peak
         t0 = time.monotonic()
         with self._device_lock, tm.phase("fold"):
-            self.global_model = self._aggregate_round()
+            self.global_model = self._aggregate_round(partial=partial)
             synchronize(self.device)
         tm.gauge("agg_fold_ms", (time.monotonic() - t0) * 1e3)
         tm.gauge("agg_buffered_peak", buffered_peak)
@@ -533,10 +751,15 @@ class FedAvgServerManager(ServerManager):
         # the round record's counters are this round's traffic (the perf
         # record's wire bytes/s derive from exactly these)
         self._credit_wire_bytes()
-        # the strict barrier closes every round in full
         rec = tm.end_round(self.round_idx, extra={
             "cohort": self._round_cohort,
-            "reported": [int(w) for w in reported], "partial": False})
+            "reported": [int(w) for w in reported],
+            "live": [int(w) for w in live],
+            "partial": bool(partial),
+            "evictions": int(self.liveness.evictions),
+            "rejoins": int(self.liveness.rejoins),
+            "deadline_s": (float(self.round_deadline_s)
+                           if self.round_deadline_s else None)})
         if self.obs is not None:
             # the server derives wire bytes/s and the card's memory per
             # round (MFU stays silo-side: the server only aggregates)
@@ -549,6 +772,8 @@ class FedAvgServerManager(ServerManager):
             if batches:
                 tm.count("obs_fsync_batches", batches)
         self.round_idx += 1
+        # the new round enters with a full extension budget
+        self._extensions_this_round = 0
         if self.checkpoint_mgr is not None:
             with self._device_lock, tm.phase("checkpoint"):
                 self.checkpoint_mgr.save(self.round_idx,
@@ -559,6 +784,124 @@ class FedAvgServerManager(ServerManager):
         idxs = self.aggregator.client_sampling(
             self.round_idx, self.client_num_in_total, self.worker_num)
         self._broadcast_model(MSG_TYPE_S2C_SYNC_MODEL, idxs)
+        self._arm_deadline()
+
+    # -- fault tolerance: the deadline, heartbeats, JOIN ---------------------
+    def handle_round_timeout(self, msg: Message) -> None:
+        """The deadline policy: with at least ``ceil(min_quorum_frac *
+        live)`` reports, evict the live silos that did not report and
+        close with the weighted partial aggregate; below quorum, extend
+        the deadline (a close over almost no mass would poison the global
+        model), up to the per-round budget. The quorum server overrides
+        this with its absolute count."""
+        if msg.get(MSG_ARG_KEY_ROUND) != self.round_idx:
+            return  # the tick of a round already closed
+        if not self._evict_on_deadline:
+            return
+        live = self.liveness.live_workers()
+        reported = self.aggregator.reported_set()
+        need = max(1, math.ceil(self.min_quorum_frac * max(1, len(live))))
+        if len(reported) < need:
+            if self._note_deadline_extension():
+                self._fail_schedule(
+                    f"round {self.round_idx} is still below quorum "
+                    f"({len(reported)}/{len(live)} reports, need {need}) "
+                    f"after {self._extensions_this_round - 1} deadline "
+                    f"extensions (max_deadline_extensions="
+                    f"{self._max_extensions}): the federation cannot make "
+                    "progress")
+                return
+            if self.obs is not None:
+                # the round is not closing: record it and arm a one-shot
+                # profile of the next round
+                self.obs.note_anomaly(
+                    "deadline_extension", self.round_idx,
+                    {"reported": len(reported), "live": len(live),
+                     "need": int(need),
+                     "extensions": int(self._extensions_this_round)})
+            logging.warning(
+                "round %d deadline passed with %d/%d reports (quorum %d): "
+                "extending the deadline (%d/%s extensions used)",
+                self.round_idx, len(reported), len(live), need,
+                self._extensions_this_round,
+                self._max_extensions
+                if self._max_extensions is not None else "inf")
+            self._arm_deadline()
+            return
+        for w in sorted(live - reported):
+            if self.liveness.evict(w):
+                self._worker_base.pop(w, None)
+                logging.warning(
+                    "silo %d missed the %.3gs round-%d deadline: evicted "
+                    "from the live set (the mass of its missing reply, "
+                    "error feedback included, is lost); it re-admits via "
+                    "JOIN with a full resync", w + 1, self.round_deadline_s,
+                    self.round_idx)
+        self._close_round(partial=True)
+
+    def _note_deadline_extension(self) -> bool:
+        """Count one below-quorum extension; True once the round's budget
+        (``max_deadline_extensions``) is spent: the caller fails the
+        schedule instead of extending forever (``None``: no budget)."""
+        self._extensions_this_round += 1
+        self.ft_counters["deadline_extensions"] += 1
+        return (self._max_extensions is not None
+                and self._extensions_this_round > self._max_extensions)
+
+    def handle_message_heartbeat(self, msg: Message) -> None:
+        # the beat itself landed in receive_message; here the count, and
+        # with observability on the idle silo's digest row
+        self.ft_counters["heartbeats"] += 1
+        if self.obs is not None:
+            digest = msg.get_params().get(MSG_ARG_KEY_OBS_DIGEST)
+            if digest is not None:
+                self.obs.recorder.append(
+                    {"kind": "silo", "round": int(self.round_idx),
+                     "silo_rank": int(msg.get_sender_id()),
+                     "event": "heartbeat", "digest": digest})
+
+    def handle_message_join(self, msg: Message) -> None:
+        """Re-admit an evicted or restarted silo: mark it live, forget its
+        stale base report, and resync it with the full-precision mirror
+        (the model every in-sync silo holds), so it decodes the next
+        compressed broadcast like everyone else."""
+        worker = msg.get_sender_id() - 1
+        done = msg.get_params().get(MSG_ARG_KEY_ROUNDS_COMPLETED, None)
+        if self.liveness.is_live(worker) \
+                and self.aggregator.has_reported(worker):
+            # live and already reported: it is waiting out the round
+            return
+        self.liveness.admit(worker)
+        self._worker_base.pop(worker, None)
+        if not self._evict_on_deadline:
+            # the strict barrier: JOIN is proof of life only (a resync
+            # could feed the all-received barrier twice)
+            return
+        if self.round_idx >= self.comm_round:
+            return  # the schedule is done
+        if self._resynced_round.get(worker) == self.round_idx:
+            return  # resynced this round already; its reply is on the way
+        self._resynced_round[worker] = self.round_idx
+        self.ft_counters["join_resyncs"] += 1
+        logging.info("silo %d JOIN (rounds_completed=%s): re-admitted with "
+                     "a full-precision mirror resync at round %d",
+                     worker + 1, done, self.round_idx)
+        with self._device_lock:
+            payload = to_numpy(self._mirror if self._mirror is not None
+                               else self.global_model)
+        idxs = self.aggregator.client_sampling(
+            self.round_idx, self.client_num_in_total, self.worker_num)
+        out = Message(MSG_TYPE_S2C_SYNC_MODEL, self.rank, worker + 1)
+        out.add(MSG_ARG_KEY_MODEL_PARAMS, payload)
+        out.add(MSG_ARG_KEY_CLIENT_INDEX, int(idxs[worker]))
+        out.add(MSG_ARG_KEY_ROUND, self.round_idx)
+        out.add(MSG_ARG_KEY_BCAST_SEQ, self._bcast_seq)
+        try:
+            self.send_message(out)
+        except OSError as exc:
+            if self.liveness.evict(worker):
+                logging.warning("resync to rejoining silo %d failed (%r): "
+                                "evicted again", worker + 1, exc)
 
 
 class FedOptServerManager(FedAvgServerManager):
@@ -599,8 +942,8 @@ class FedOptServerManager(FedAvgServerManager):
         self.global_model = state["variables"]
         self.server_opt_state = state["server_opt"]
 
-    def _aggregate_round(self):
-        avg = super()._aggregate_round()
+    def _aggregate_round(self, partial: bool = False):
+        avg = super()._aggregate_round(partial=partial)
         params = [self.global_model[n] for n in self._param_names]
         pseudo_grad = torch._foreach_sub(
             params, [avg[n] for n in self._param_names])
@@ -615,7 +958,13 @@ class FedOptServerManager(FedAvgServerManager):
 class FedAvgClientManager(ClientManager):
     """A silo: receives the global model, points at its sampled client's
     shard (client virtualization, reference FedAVGTrainer.update_dataset),
-    runs local training, and ships ``(params, n_i)`` back."""
+    runs local training, and ships ``(params, n_i)`` back.
+
+    With ``heartbeat_s`` a thread beats the server every ``heartbeat_s``
+    while the silo is idle, and after three beats without a broadcast
+    sends JOIN instead (the silo was evicted, or the server forgot it); a
+    long local training is not silence. A BACKPRESSURE reply defers the
+    next JOIN."""
 
     def __init__(self, rank: int, size: int, com_manager,
                  dataset: FederatedDataset, module, task: str,
@@ -623,13 +972,28 @@ class FedAvgClientManager(ClientManager):
                  compress: bool = False, compression=None,
                  state_dir: Optional[str] = None, resume: bool = False,
                  prefetch_depth: int = 2, device="cuda",
-                 timer: Optional[RoundTimer] = None, obs=None):
+                 timer: Optional[RoundTimer] = None, obs=None,
+                 heartbeat_s: float = 0.0):
         super().__init__(rank, size, com_manager)
         self.dataset = dataset
         #: this silo's observability bundle (its own flight log) or None
         self._obs = obs
         #: rounds this silo trained and replied to (the digest's progress)
         self.rounds_completed = 0
+        # -- fault tolerance ------------------------------------------------
+        self.heartbeat_s = float(heartbeat_s or 0.0)
+        #: server silence past this (three beats) sends JOIN
+        self.rejoin_idle_s = 3.0 * self.heartbeat_s
+        self._last_s2c = time.monotonic()
+        #: no JOIN before this (a BACKPRESSURE reply's retry window)
+        self._join_backoff_until = 0.0
+        #: True while a broadcast's handler (local training) runs
+        self._busy = False
+        #: guards the flags the receive and heartbeat threads share; a leaf
+        #: lock, never held across a send or a device section
+        self._hb_lock = threading.Lock()
+        self._hb_stop = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
         self.device = resolve_device(device)
         self._device_lock = _DEVICE_LOCK
         validate_accum_steps(train_cfg, dataset.train_data_local_num_dict)
@@ -698,8 +1062,74 @@ class FedAvgClientManager(ClientManager):
             MSG_TYPE_S2C_SYNC_MODEL, self.handle_message_init)
         self.register_message_receive_handler(
             MSG_TYPE_S2C_FINISH, self._handle_finish)
+        self.register_message_receive_handler(
+            MSG_TYPE_S2C_JOIN_BACKPRESSURE, self._handle_join_backpressure)
+
+    def _handle_join_backpressure(self, msg: Message) -> None:
+        """The server refused our JOIN for now: defer the next attempt by
+        its retry window. The idle clock keeps running (we are still
+        evicted), so the JOIN is retried after the window."""
+        retry = float(msg.get_params().get(
+            MSG_ARG_KEY_RETRY_AFTER, max(1.0, self.heartbeat_s)))
+        with self._hb_lock:
+            self._join_backoff_until = time.monotonic() + retry
+        logging.info("silo %d: JOIN backpressured, retrying in %.2fs",
+                     self.rank, retry)
+
+    def run(self) -> None:
+        self.register_message_receive_handlers()
+        with self._hb_lock:
+            # the idle clock starts with the protocol, not at construction
+            # (the JAX package's starts at construction, so the launcher's
+            # warm-up between the two reads as server silence)
+            self._last_s2c = time.monotonic()
+        if self.heartbeat_s > 0:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, daemon=True,
+                name=f"silo{self.rank}-heartbeat")
+            self._hb_thread.start()
+        try:
+            self.com_manager.handle_receive_message()
+        finally:
+            self._hb_stop.set()
+            if self._hb_thread is not None:
+                self._hb_thread.join(timeout=self.heartbeat_s + 5.0)
+
+    def _send_join(self) -> None:
+        msg = Message(MSG_TYPE_C2S_JOIN, self.rank, 0)
+        with self._hb_lock:
+            done = self.rounds_completed
+        msg.add(MSG_ARG_KEY_ROUNDS_COMPLETED, done)
+        try:
+            self.send_message(msg)
+        except OSError as exc:
+            # the server may be down: the next beat retries the JOIN
+            logging.warning("silo %d: JOIN not delivered (%r); retrying on "
+                            "the heartbeat cadence", self.rank, exc)
+
+    def _heartbeat_loop(self) -> None:
+        """Beat while idle; send JOIN once the server has been silent past
+        ``rejoin_idle_s`` (we were evicted, or the server restarted)."""
+        while not self._hb_stop.wait(self.heartbeat_s):
+            with self._hb_lock:
+                idle = time.monotonic() - self._last_s2c
+                busy = self._busy
+                backoff_until = self._join_backoff_until
+            if (not busy
+                    and idle > self.rejoin_idle_s
+                    and time.monotonic() >= backoff_until):
+                self._send_join()
+                continue
+            beat = Message(MSG_TYPE_C2S_HEARTBEAT, self.rank, 0)
+            if self._obs is not None:
+                beat.add(MSG_ARG_KEY_OBS_DIGEST, self._obs_digest())
+            try:
+                self.send_message(beat)
+            except OSError as exc:
+                logging.debug("silo %d heartbeat failed: %r", self.rank, exc)
 
     def _handle_finish(self, msg: Message) -> None:
+        self._hb_stop.set()
         if self._prefetch is not None:
             self._prefetch.close()
         if self._state_ckpt is not None:
@@ -756,8 +1186,11 @@ class FedAvgClientManager(ClientManager):
         dedup drops, rounds completed and prefetch hits, plus this
         endpoint incarnation's stream epoch, a few dozen bytes."""
         com = self.com_manager
-        counters = dict(getattr(com, "counters", {}))
-        digest = {"rounds_completed": int(self.rounds_completed),
+        with self._hb_lock:
+            done = self.rounds_completed
+        counters = dict(com.all_counters() if hasattr(com, "all_counters")
+                        else getattr(com, "counters", {}))
+        digest = {"rounds_completed": int(done),
                   "epoch": endpoint_epoch(com) or 0,
                   "bytes_up": int(getattr(com, "bytes_sent", 0)),
                   "bytes_down": int(getattr(com, "bytes_received", 0)),
@@ -770,6 +1203,20 @@ class FedAvgClientManager(ClientManager):
         return digest
 
     def handle_message_init(self, msg: Message) -> None:
+        # busy for the whole handler: local training may run far longer
+        # than rejoin_idle_s, and the heartbeat thread must not read that
+        # as eviction and JOIN mid-round
+        with self._hb_lock:
+            self._last_s2c = time.monotonic()
+            self._busy = True
+        try:
+            self._train_and_reply(msg)
+        finally:
+            with self._hb_lock:
+                self._busy = False
+                self._last_s2c = time.monotonic()
+
+    def _train_and_reply(self, msg: Message) -> None:
         t0 = time.perf_counter()
         tm = self._timer
         client_idx = int(msg.get(MSG_ARG_KEY_CLIENT_INDEX))
@@ -835,16 +1282,21 @@ class FedAvgClientManager(ClientManager):
                 {"kind": "round", "round": int(round_idx),
                  "client_idx": int(client_idx),
                  "train_s": round(time.perf_counter() - t0, 6)})
-        self.send_message(reply)
-        self.rounds_completed += 1
+        try:
+            self.send_message(reply)
+        except OSError as exc:
+            # the server may be gone: the receive loop must survive to
+            # hear a restarted server, which re-drives the round
+            logging.warning("silo %d: round-%d reply not delivered (%r)",
+                            self.rank, round_idx, exc)
+            return
+        with self._hb_lock:
+            self.rounds_completed += 1
 
 
 #: options of the JAX launchers that the port does not run yet, with the
 #: ROADMAP item that ports each; any value other than the default raises
 _NOT_PORTED = {
-    "round_deadline_s": "Slice D item 22c (deadline/quorum, fault tolerance)",
-    "heartbeat_s": "Slice D item 22c (deadline/quorum, fault tolerance)",
-    "fault_plan": "Slice D item 22c (deadline/quorum, fault tolerance)",
     "server_checkpoint_dir": "Slice D item 23 (control plane)",
     "checkpoint_sync": "Slice D item 23 (control plane)",
     "pace_steering": "Slice D item 23 (control plane)",
@@ -930,15 +1382,23 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
     each silo's EF residual under ``checkpoint_dir/silo_<rank>``);
     ``resume`` restarts from the latest checkpoint.
 
+    Fault tolerance: ``round_deadline_s`` turns on deadline rounds (the
+    weighted partial close once ``min_quorum_frac`` of the live silos
+    reported, evicting the rest; below quorum at most
+    ``max_deadline_extensions`` extensions a round, then
+    ``SchedulingStallError``); ``heartbeat_s`` makes idle silos beat and
+    JOIN back after three silent beats; ``fault_plan`` (DSL or JSON, see
+    ``comm/faults.py``) wraps every endpoint in the seeded fault
+    injector. The fault-tolerance counters land in ``timer`` as ``ft_*``.
+
     The signature is the JAX package's; the options the port does not run
     yet raise ``NotImplementedError`` when set, the server's here and the
-    silos' and transport's in :func:`launch_federation` (``min_quorum_frac``,
-    ``max_deadline_extensions``, ``serve_staleness_rounds`` and
-    ``wan_round_s`` only take effect with one of those, so they are
-    accepted and unused). ``obs_dir`` gives every rank a flight log
-    under one ``job_id`` (see :func:`launch_federation`)."""
+    silos' and transport's in :func:`launch_federation`
+    (``serve_staleness_rounds`` and ``wan_round_s`` only take effect with
+    one of those, so they are accepted and unused). ``obs_dir`` gives
+    every rank a flight log under one ``job_id`` (see
+    :func:`launch_federation`)."""
     _refuse_not_ported(
-        round_deadline_s=round_deadline_s,
         server_checkpoint_dir=server_checkpoint_dir,
         pace_steering=pace_steering, join_rate_limit=join_rate_limit,
         wan_trace=wan_trace, wan_profiles=wan_profiles)
@@ -952,7 +1412,9 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
                        on_round_done):
         common = dict(on_round_done=on_round_done,
                       checkpoint_mgr=checkpoint_mgr, resume=resume,
-                      compression=policy)
+                      compression=policy, round_deadline_s=round_deadline_s,
+                      min_quorum_frac=min_quorum_frac,
+                      max_deadline_extensions=max_deadline_extensions)
         if server_optimizer:
             return FedOptServerManager(
                 0, size, server_com, aggregator, comm_round,
@@ -1050,25 +1512,31 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     Returns ``(final global model, history, server)``; the server carries
     ``round_timer`` with the wire byte accounting.
 
-    An exception in any actor stops the others and is re-raised here. A
-    federation that outlasts ``join_timeout_s`` raises too: the port
-    defaults ``raise_on_timeout`` to True, where the JAX package returns
-    the partial history after logging the error. ``wire_codec=False`` (the
-    JAX package's object hand-off, which ships no frame and counts no
-    bytes) is not ported: every message crosses as an encoded frame.
+    An exception in any actor stops the others and is re-raised here, as
+    is a server's ``scheduling_error`` (a round that used up its deadline
+    extensions). A federation that outlasts ``join_timeout_s`` raises
+    too: the port defaults ``raise_on_timeout`` to True, where the JAX
+    package returns the partial history after logging the error.
+    ``wire_codec=False`` (the JAX package's object hand-off, which ships
+    no frame and counts no bytes) is not ported: every message crosses as
+    an encoded frame.
 
     Every rank's endpoint comes from ``create_comm_manager(backend, rank,
-    size, addresses=, token=)``; ``client_state_dir`` holds each silo's
-    residual store (``silo_<rank>``), restored once on ``resume``. The
-    transport counters (``retries``, ``dedup_drops``, ``conn_errors``)
-    of every endpoint are summed into the timer as ``ft_*``. ``obs_dir``
+    size, addresses=, token=, fault_plan=)`` (one parsed plan for every
+    rank, so each rank's stream comes from one seed); ``heartbeat_s``
+    reaches every silo. ``client_state_dir`` holds each silo's residual
+    store (``silo_<rank>``), restored once on ``resume``. The transport
+    and fault counters of every endpoint (``retries``, ``dedup_drops``,
+    ``conn_errors``, ``faults_injected``) and the server's protocol
+    counters (evictions, rejoins, partial rounds, stale replies, corrupt
+    frames, JOIN resyncs, heartbeats, deadline extensions) are summed into
+    the timer as ``ft_*``. ``obs_dir``
     builds one observability bundle a rank (the server's with the
     slow-round profiler and the perf accountant) under one ``job_id``,
     derived once for the launch when unset; every recorder is closed on
     the way out."""
     _refuse_not_ported(
-        checkpoint_sync=state_sync, heartbeat_s=heartbeat_s,
-        fault_plan=fault_plan,
+        checkpoint_sync=state_sync,
         comm_factory=comm_factory, device_gate=device_gate,
         serve_port=serve_port, serving=serving, wan=wan)
     if not wire_codec:
@@ -1081,11 +1549,13 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     size = worker_num + 1
     router = InProcRouter() if backend.upper() in ("INPROC", "MPI") else None
     timer = timer if timer is not None else RoundTimer()
+    plan = parse_fault_plan(fault_plan)
     coms, clients = [], []
 
     def endpoint(rank):
         com = create_comm_manager(backend, rank, size, router=router,
-                                  addresses=addresses, token=token)
+                                  addresses=addresses, token=token,
+                                  fault_plan=plan)
         coms.append(com)
         return com
 
@@ -1135,6 +1605,7 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
             observers.append(obs)
         return obs
 
+    server = None
     try:
         server_com = endpoint(0)
         server = server_factory(size, server_com, FedAvgAggregator(
@@ -1151,7 +1622,8 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
                 state_dir=(os.path.join(client_state_dir, f"silo_{rank}")
                            if client_state_dir else None),
                 resume=resume, prefetch_depth=prefetch_depth, device=dev,
-                timer=timer, obs=observe(com, rank, "silo")))
+                timer=timer, obs=observe(com, rank, "silo"),
+                heartbeat_s=heartbeat_s))
         threads = [threading.Thread(target=_actor(c.run, errors, stop_all),
                                     daemon=True, name=f"silo{c.rank}")
                    for c in clients]
@@ -1170,10 +1642,16 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
             t.join(timeout=60)
     finally:
         # every exit (an endpoint that failed to construct, a raising
-        # actor, a timeout) releases every listener, connection and
-        # prefetch thread: an in-process relaunch must find its ports free
+        # actor, a timeout) releases every listener, connection, timer
+        # and prefetch thread: an in-process relaunch must find its ports
+        # free, and no deadline tick outlives the launch
         stop_all()
+        if server is not None:
+            server._cancel_deadline(final=True)
         for c in clients:
+            c._hb_stop.set()
+            if c._hb_thread is not None:
+                c._hb_thread.join(timeout=c.heartbeat_s + 5.0)
             if c._prefetch is not None:
                 c._prefetch.close()
         for obs in observers:
@@ -1187,6 +1665,20 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
             raise RuntimeError(msg)
         logging.error("%s; returning the partial history", msg)
     server._credit_wire_bytes()
-    for key in ("retries", "dedup_drops", "conn_errors"):
-        timer.count(f"ft_{key}", sum(int(c.counters[key]) for c in coms))
+    transport = defaultdict(int)
+    for com in coms:
+        counters = (com.all_counters() if hasattr(com, "all_counters")
+                    else com.counters)
+        for k, v in counters.items():
+            transport[k] += int(v)
+    for key in ("retries", "dedup_drops", "conn_errors", "faults_injected"):
+        timer.count(f"ft_{key}", transport[key])
+    timer.count("ft_evictions", int(server.liveness.evictions))
+    timer.count("ft_rejoins", int(server.liveness.rejoins))
+    for key in ("partial_rounds", "stale_replies", "corrupt_frames",
+                "join_resyncs", "heartbeats", "deadline_extensions"):
+        timer.count(f"ft_{key}", int(server.ft_counters.get(key, 0)))
+    if server.scheduling_error is not None:
+        # the server FINISHed the silos; surface the stall loudly
+        raise server.scheduling_error
     return server.global_model, history, server

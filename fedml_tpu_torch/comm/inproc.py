@@ -45,6 +45,10 @@ class InProcCommManager(BaseCommunicationManager):
         self._running = False
 
     def send_message(self, msg: Message) -> None:
+        # stamped like the socket backends: the fault injector
+        # (comm/faults.py) duplicates frames above this layer, and the
+        # receive side's seq dedup must shed the copies here too
+        self._stamp_seq(msg)
         frame = msg.to_bytes()
         self._count_sent(len(frame))
         self.router.mailbox(msg.get_receiver_id()).put(frame)

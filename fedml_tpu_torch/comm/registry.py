@@ -2,8 +2,9 @@
 switch (client_manager.py:22-35); the port's copy of
 ``fedml_tpu/comm/registry.py``.
 
-The chaos harness (``fault_plan``, the JAX package's comm/faults.py) is not
-ported yet and raises naming its ROADMAP item.
+``fault_plan`` (a ``comm.faults.FaultPlan``, a DSL string or JSON, see
+``parse_fault_plan``) wraps the endpoint in the seeded fault injector;
+``None`` or an empty plan returns the bare backend.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 from fedml_tpu_torch.comm.base import BaseCommunicationManager
+from fedml_tpu_torch.comm.faults import FaultyCommManager, parse_fault_plan
 from fedml_tpu_torch.comm.inproc import InProcCommManager, InProcRouter
 
 
@@ -34,11 +36,16 @@ def create_comm_manager(
     ``wire_codec=False`` (the JAX package's in-process object hand-off)
     is refused: the in-process router always ships encoded frames, so the
     wire bytes are always counted."""
-    if fault_plan:
-        raise NotImplementedError(
-            f"fault_plan={fault_plan!r} (the seeded chaos harness) is not "
-            "ported yet: ROADMAP Queue 1, Slice D item 22c (deadline/"
-            "quorum, fault tolerance)")
+    plan = parse_fault_plan(fault_plan)
+    inner = _create_backend(backend, rank, size, router, addresses,
+                            wire_codec, token)
+    if plan is None or plan.empty:
+        return inner
+    return FaultyCommManager(inner, plan, rank)
+
+
+def _create_backend(backend: str, rank: int, size: int, router, addresses,
+                    wire_codec: bool, token) -> BaseCommunicationManager:
     key = backend.upper()
     if key in ("ROUTED", "BROKER"):
         if addresses is None or "router" not in addresses:

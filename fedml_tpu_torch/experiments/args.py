@@ -99,9 +99,47 @@ def add_federated_args(parser: argparse.ArgumentParser):
     parser.add_argument("--resume", action="store_true",
                         help="restart from the latest checkpoint in "
                              "--checkpoint_dir")
+    # -- fault tolerance (the cross-silo backends) --------------------------
+    parser.add_argument("--round_deadline_s", type=float, default=None,
+                        help="cross-silo fault tolerance: close a round "
+                             "with the weighted partial aggregate once this "
+                             "deadline passes with >= min_quorum_frac of "
+                             "the live silos reported, evicting the rest "
+                             "(they rejoin via JOIN and a full-precision "
+                             "resync). Unset = the strict all-received "
+                             "barrier. Also the per-round deadline of "
+                             "--algo fedavg_async quorum mode (10 there "
+                             "when unset)")
+    parser.add_argument("--min_quorum_frac", type=float, default=0.5,
+                        help="fraction of the live silos that must report "
+                             "before a deadline close may evict the rest "
+                             "(below it the deadline extends)")
+    parser.add_argument("--heartbeat_s", type=float, default=0.0,
+                        help="silo heartbeat period (0 = off): idle silos "
+                             "beat the server's liveness table, and after "
+                             "three silent beats send JOIN to be "
+                             "re-admitted (evicted or restarted silos)")
+    parser.add_argument("--fault_plan", type=str, default=None,
+                        help="seeded fault injection (comm/faults.py): a "
+                             "DSL string like "
+                             "'seed=7;drop:p=0.1;delay:p=0.2,delay_ms=50', "
+                             "inline JSON, or a .json path. Wraps every "
+                             "endpoint; empty/unset = no injection")
+    parser.add_argument("--max_deadline_extensions", type=int, default=25,
+                        help="cap on the below-quorum deadline extensions "
+                             "of a round; past it the run fails loudly "
+                             "(SchedulingStallError) instead of extending "
+                             "forever. Negative = unbounded")
     parser.add_argument("--ci", type=int, default=0,
                         help="1 = tiny smoke-run truncation (reference --ci)")
     return parser
+
+
+def resolve_max_extensions(args):
+    """A negative ``--max_deadline_extensions`` means unbounded, ``None``
+    for the server managers (the JAX launchers' convention)."""
+    v = getattr(args, "max_deadline_extensions", 25)
+    return None if v is not None and v < 0 else v
 
 
 def build_dataset_and_model(args):

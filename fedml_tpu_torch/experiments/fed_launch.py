@@ -18,8 +18,14 @@ darts|gdas``, ``--arch_unrolled``, ``--arch_lr``,
 ``--nas_retrain_rounds``) on NHWC images, on ``--device`` (default
 ``cuda``; without a GPU and without ``--device cpu`` it raises).
 ``--checkpoint_dir`` / ``--resume`` reach fedavg and fedavg_cross_silo
-(``--backend inproc|tcp|grpc``). fedavg_async raises ``NotImplementedError`` naming its ROADMAP item, before
-any data is built.
+(``--backend inproc|tcp|grpc``), as do the fault-tolerance flags
+(``--round_deadline_s``, ``--min_quorum_frac``,
+``--max_deadline_extensions``, ``--heartbeat_s``, ``--fault_plan``).
+fedavg_async runs the straggler-tolerant servers over the in-process
+router: ``--async_mode quorum`` (``--quorum``, ``--round_deadline_s``,
+10 s when unset) or ``fedasync`` (``--async_alpha``, ``--async_poly_a``,
+``--max_updates``). The control plane's flags (ROADMAP item 23) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import torch
 
 from fedml_tpu_torch.core.robust import DEFENSES, ROBUST_AGGREGATORS
 from fedml_tpu_torch.experiments.args import (add_federated_args,
-                                              build_dataset_and_model)
+                                              build_dataset_and_model,
+                                              resolve_max_extensions)
 from fedml_tpu_torch.experiments.main_fedavg import (BACKEND_RUNNERS,
                                                      _not_ported,
                                                      apply_ci_truncation,
@@ -50,7 +57,7 @@ ALGOS = ["fedavg", "fedavg_cross_silo", "fedopt", "fednova",
          "contribution", "fedavg_async"]
 
 #: algorithms the port does not run yet -> their ROADMAP Queue 1 item
-NOT_PORTED = {"fedavg_async": "Slice D item 22e"}
+NOT_PORTED: dict = {}
 
 # algorithms whose inner loop does not take TrainConfig's optimizer
 # factory: flags like --accum_steps do not reach them
@@ -126,6 +133,19 @@ def add_algo_args(parser: argparse.ArgumentParser):
     # fedseg (reference SegmentationLosses)
     parser.add_argument("--seg_loss", type=str, default="ce",
                         choices=["ce", "focal"])
+    # fedavg_async (straggler tolerance; the deadline is the shared
+    # --round_deadline_s, 10 s in quorum mode when unset)
+    parser.add_argument("--async_mode", type=str, default="quorum",
+                        choices=["quorum", "fedasync"],
+                        help="quorum: close rounds at (all | deadline and "
+                             "quorum); fedasync: merge every update with a "
+                             "staleness-decayed weight")
+    parser.add_argument("--quorum", type=int, default=1)
+    parser.add_argument("--async_alpha", type=float, default=0.6)
+    parser.add_argument("--async_poly_a", type=float, default=0.5)
+    parser.add_argument("--max_updates", type=int, default=20,
+                        help="fedasync: the update budget (the async "
+                             "counterpart of --comm_round)")
 
 
 def _log_history(api, sink, fused_rounds: int = 0):
@@ -234,6 +254,8 @@ def _dispatch(args, ds, model, task, sink):
             silo_args.backend = "inproc"
         return run_cross_silo(silo_args, ds, model, task, sink)
     _warn_unwired(args)
+    if args.algo == "fedavg_async":
+        return _run_async(args, ds, model, task, sink, tcfg)
     if args.algo == "fedopt":
         from fedml_tpu_torch.algorithms.fedopt import FedOptAPI, FedOptConfig
         api = FedOptAPI(ds, model, task=task, device=dev, config=FedOptConfig(
@@ -317,6 +339,38 @@ def _dispatch(args, ds, model, task, sink):
         return _run_contribution(args, ds, model, task, sink,
                                  fedavg_common)
     return _log_history(api, sink, fused_rounds=args.fused_rounds)
+
+
+def _run_async(args, ds, model, task, sink, tcfg):
+    """The quorum or FedAsync server over the in-process router, one silo
+    a sampled client; the final record adds ``partial_rounds`` (quorum)
+    or ``updates`` and ``mean_staleness`` (fedasync)."""
+    from fedml_tpu_torch.algorithms.fedavg_async import run_fedavg_async
+    _, history, server = run_fedavg_async(
+        ds, model, task=task, worker_num=args.client_num_per_round,
+        mode=args.async_mode, comm_round=args.comm_round,
+        quorum=args.quorum,
+        round_deadline_s=(args.round_deadline_s
+                          if args.round_deadline_s is not None else 10.0),
+        alpha=args.async_alpha, poly_a=args.async_poly_a,
+        max_updates=args.max_updates, train_cfg=tcfg, seed=args.seed,
+        compression=args.compression, heartbeat_s=args.heartbeat_s,
+        fault_plan=args.fault_plan,
+        max_deadline_extensions=resolve_max_extensions(args),
+        device=args.device)
+    for rec in history:
+        sink.log(rec, step=rec["round"])
+    final = dict(history[-1]) if history else {}
+    if args.async_mode == "quorum":
+        final["partial_rounds"] = list(server.partial_rounds)
+    else:
+        final["updates"] = len(server.update_log)
+        final["mean_staleness"] = (
+            float(np.mean([u["staleness"] for u in server.update_log]))
+            if server.update_log else 0.0)
+    sink.log({k: v for k, v in final.items() if not isinstance(v, list)})
+    logging.info("final: %s", final)
+    return final
 
 
 def _run_robust(args, ds, model, task, sink, common):

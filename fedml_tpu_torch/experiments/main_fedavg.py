@@ -17,7 +17,11 @@ host loop of either backend. ``--obs_dir`` (with ``--job_id``) turns on the
 flight recorder for either backend: ``flight_rank<r>.jsonl`` a rank, with
 per-round perf records (MFU against the card's BF16 peak); read them with
 ``python -m fedml_tpu_torch.obs merge|report|tail <obs_dir>``.
-``--backend spmd`` is not ported yet and raises ``NotImplementedError``.
+The cross-silo backends take the fault-tolerance flags
+``--round_deadline_s``, ``--min_quorum_frac``, ``--max_deadline_extensions``,
+``--heartbeat_s`` and ``--fault_plan``. ``--backend spmd`` is not ported
+yet and raises ``NotImplementedError``; the control plane's flags
+(ROADMAP item 23) are not ported yet.
 
 Usage: python -m fedml_tpu_torch.experiments.main_fedavg \
     --dataset femnist_gen --client_num_in_total 200 --client_num_per_round 10 \
@@ -33,7 +37,8 @@ import argparse
 import logging
 
 from fedml_tpu_torch.experiments.args import (add_federated_args,
-                                              build_dataset_and_model)
+                                              build_dataset_and_model,
+                                              resolve_max_extensions)
 from fedml_tpu_torch.trainer.functional import TrainConfig
 from fedml_tpu_torch.utils.checkpoint import CheckpointManager
 from fedml_tpu_torch.utils.device import resolve_device
@@ -115,8 +120,13 @@ def run_cross_silo(args, ds, model, task, sink):
         backend=args.backend, addresses=addresses, compress=args.compress,
         compression=args.compression, seed=args.seed,
         checkpoint_dir=args.checkpoint_dir, resume=args.resume,
-        prefetch_depth=args.prefetch_depth, obs_dir=args.obs_dir,
-        job_id=args.job_id, timer=timer, device=args.device)
+        prefetch_depth=args.prefetch_depth,
+        round_deadline_s=args.round_deadline_s,
+        min_quorum_frac=args.min_quorum_frac, heartbeat_s=args.heartbeat_s,
+        fault_plan=args.fault_plan,
+        max_deadline_extensions=resolve_max_extensions(args),
+        obs_dir=args.obs_dir, job_id=args.job_id, timer=timer,
+        device=args.device)
     for rec in history:
         sink.log(rec, step=rec["round"])
     rounds = max(1, len(history))

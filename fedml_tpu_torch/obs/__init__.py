@@ -85,8 +85,11 @@ def default_job_id(prefix: str = "job", stable_key=None) -> str:
 
 def endpoint_epoch(com) -> Optional[int]:
     """The reliable transport's per-incarnation stream epoch for a comm
-    endpoint — the identity flight records reuse."""
-    epoch = getattr(com, "_seq_epoch", None)
+    endpoint — the identity flight records reuse. Unwraps the fault
+    injector (``comm.faults.FaultyCommManager`` holds the real backend at
+    ``.inner``)."""
+    inner = getattr(com, "inner", com)
+    epoch = getattr(inner, "_seq_epoch", None)
     return int(epoch) if epoch is not None else None
 
 

@@ -319,13 +319,8 @@ METRICS: Dict[str, Dict[str, str]] = {
 
 #: the JAX names the port does not emit yet -> the ROADMAP item that
 #: brings each (the row stays; nothing is dropped)
-_ITEM_22C = "Slice D item 22c (deadline/quorum, fault tolerance)"
 PENDING: Dict[str, str] = {
     "send_queue_depth": "Slice D item 24 (comm/fanout_smoke.py)",
-    **{n: _ITEM_22C for n in (
-        "ft_faults_injected", "ft_evictions", "ft_rejoins",
-        "ft_partial_rounds", "ft_stale_replies", "ft_corrupt_frames",
-        "ft_join_resyncs", "ft_heartbeats", "ft_deadline_extensions")},
     **{n: "Slice D item 23 (control plane)" for n in METRICS
        if n.startswith("cp_")},
     **{n: "Slice D item 22f (the WAN world)" for n in METRICS

@@ -303,7 +303,6 @@ def test_aggregator_fold_is_arrival_order_invariant_and_keeps_signed_zero():
 
 
 NOT_PORTED = [
-    ("round_deadline_s", 1.0), ("heartbeat_s", 0.5), ("fault_plan", "drop"),
     ("server_checkpoint_dir", "/tmp/x"),
     ("checkpoint_sync", True), ("pace_steering", True),
     ("join_rate_limit", 2.0),
@@ -320,11 +319,15 @@ def test_unported_options_raise_and_name_their_item(name, value):
 
 
 @pytest.mark.parametrize("name", ["checkpoint_dir", "resume", "token",
-                                  "server_optimizer", "obs_dir", "job_id"])
+                                  "server_optimizer", "obs_dir", "job_id",
+                                  "round_deadline_s", "heartbeat_s",
+                                  "fault_plan"])
 def test_formerly_refused_options_now_run(name, tmp_path):
     """The options the port ran without before: round checkpoints, resume,
-    the routed transport's token, the FedOpt server, and the flight
-    recorder with its job id (a pure observer: the same bits)."""
+    the routed transport's token, the FedOpt server, the flight recorder
+    with its job id (a pure observer: the same bits), and the fault
+    tolerance of deadline rounds, heartbeats and a fault plan that never
+    fires (the same bits when no silo misses a deadline)."""
     from fedml_tpu_torch import native
     ds = make_blob_federated(**BLOB)
     run = dict(worker_num=2, comm_round=1, train_cfg=TrainConfig(**TRAIN),
@@ -356,6 +359,11 @@ def test_formerly_refused_options_now_run(name, tmp_path):
         ids = {r["job_id"] for rank in range(3) for r in read_flight_log(
             str(tmp_path / f"flight_rank{rank}.jsonl"))}
         assert ids == {"j"} if name == "job_id" else len(ids) == 1
+    elif name in ("round_deadline_s", "heartbeat_s", "fault_plan"):
+        value = {"round_deadline_s": 30.0, "heartbeat_s": 0.05,
+                 "fault_plan": "seed=3;drop:p=0.0"}[name]
+        final, _ = cs.run_fedavg_cross_silo(ds, _lr(ds), **{name: value},
+                                            **run)
     else:
         # one round of server SGD at lr 1 lands on FedAvg's average
         final, _ = cs.run_fedavg_cross_silo(ds, _lr(ds),

@@ -121,7 +121,14 @@ with NativeRouter(token=b"t") as router:
         worker_num=2, comm_round=1, backend="ROUTED", token=b"t",
         addresses={"router": ("127.0.0.1", router.port)}, device="cpu",
         train_cfg=TrainConfig(batch_size=16, lr=0.1))
-hist = hist + resumed + routed
+# a deadline round that evicts a silo whose reply a fault plan drops, and
+# the quorum and FedAsync servers through fed_launch
+_, deadline_hist = run_fedavg_cross_silo(
+    bds, create_model("lr", bds.class_num, input_shape=(20,)), worker_num=2,
+    comm_round=2, train_cfg=TrainConfig(batch_size=16, lr=0.1),
+    round_deadline_s=0.3, heartbeat_s=0.1, device="cpu",
+    fault_plan="drop:direction=send,sender=2,msg_type=4,after=1,max_count=1")
+hist = hist + resumed + routed + deadline_hist
 # the rest of the FedAvg family through fed_launch
 from fedml_tpu_torch.experiments import fed_launch
 algos = {}
@@ -158,6 +165,12 @@ for algo, extra in (("split_nn", ["--dataset", "blob", "--lr", "0.01"]),
         "--client_num_per_round", "2", "--comm_round", "1",
         "--batch_size", "16", "--device", "cpu",
         "--run_dir", sys.argv[1] + "/" + algo]))
+for mode in ("quorum", "fedasync"):
+    algos["fedavg_async_" + mode] = sorted(fed_launch.main([
+        "--algo", "fedavg_async", "--async_mode", mode, "--dataset", "blob",
+        "--client_num_in_total", "4", "--client_num_per_round", "2",
+        "--comm_round", "1", "--max_updates", "2", "--batch_size", "16",
+        "--device", "cpu", "--run_dir", sys.argv[1] + "/async_" + mode]))
 print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
                   "obs_rc": obs_rc,
                   "lm_tokens": float(stats["count"]),
@@ -178,11 +191,14 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     assert out["round"] == 0
     assert out["obs_rc"] == 0
     assert out["lm_tokens"] > 0
-    assert out["silo_rounds"] == [0, 1, 0]
+    assert out["silo_rounds"] == [0, 1, 0, 0, 1]
     assert sorted(out["algos"]) == sorted(
         ["fedopt", "fedavg_robust", "fednova", "hierarchical",
          "turboaggregate", "centralized", "decentralized", "contribution",
-         "fedseg", "split_nn", "vertical_fl", "fedgkt", "fednas"])
+         "fedseg", "split_nn", "vertical_fl", "fedgkt", "fednas",
+         "fedavg_async_quorum", "fedavg_async_fedasync"])
+    assert "partial_rounds" in out["algos"]["fedavg_async_quorum"]
+    assert "mean_staleness" in out["algos"]["fedavg_async_fedasync"]
     assert {"genotype", "retrain_test_acc"} <= set(out["algos"]["fednas"])
     assert "test_acc" in out["algos"]["fedgkt"]
     assert "test_mIoU" in out["algos"]["fedseg"]
@@ -213,7 +229,8 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "algorithms.base_framework", "obs", "obs.flight", "obs.merge",
               "obs.perf", "obs.anomaly", "obs.registry", "obs.tail",
               "obs.report", "obs.trend", "obs.__main__", "utils.flops",
-              "utils.fsio", "utils.watchdog", "utils.tracing"):
+              "utils.fsio", "utils.watchdog", "utils.tracing",
+              "comm.faults", "algorithms.fedavg_async", "control"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)
            or REFERENCE.search(m)]

@@ -269,9 +269,11 @@ def test_federation_over_the_transport_equals_inproc(backend, policy):
 
 
 def test_socket_wire_bytes_are_the_frames():
-    """TCP carries the in-process router's frames plus each frame's seq
-    stamp (a header entry of at most ~80 bytes: the key and a 32-bit epoch
-    and seq); the length prefixes are framing, not counted."""
+    """TCP carries the in-process router's frames: both stamp each frame
+    with its seq (a header entry of the key and a 32-bit epoch and seq, as
+    the JAX package's in-process router does), so the two differ only by
+    the digits of the endpoints' random epochs; the length prefixes are
+    framing, not counted."""
     sizes = {}
     for backend in ("INPROC", "TCP"):
         from fedml_tpu_torch.utils.tracing import RoundTimer
@@ -286,7 +288,7 @@ def test_socket_wire_bytes_are_the_frames():
     for frames, tcp_b, inproc_b in zip(
             (ROUNDS * SILOS, (ROUNDS + 1) * SILOS), sizes["TCP"],
             sizes["INPROC"]):
-        assert inproc_b + 40 * frames < tcp_b < inproc_b + 96 * frames
+        assert abs(tcp_b - inproc_b) <= 12 * frames
 
 
 # -- reliable delivery -------------------------------------------------------
@@ -608,7 +610,7 @@ def test_the_registry_builds_mqtt_and_routed():
 
 
 def test_the_registry_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="22c"):
+    with pytest.raises(ValueError, match="unknown fault-rule key"):
         create_comm_manager("INPROC", 0, 2, router=InProcRouter(),
                             fault_plan="drop:0.1")
     with pytest.raises(NotImplementedError, match="wire_codec"):
