@@ -238,7 +238,23 @@
    (c) ``--async_mode fedasync``: 1 LR silo, 5 updates, card vs CPU
    within 1e-5; then 4 CNN silos, ``update_log`` of ``max_updates``
    entries, each mix ``alpha * (s + 1) ** -poly_a``. It prints the phase's
-   time.
+   time;
+31. the WAN world (``fedml_tpu_torch/wan``): one deadline federation of
+   the CNN over 4 in-process silos with ``delta_int8`` and the buffered
+   close through the aggregation kernel, the deadline sized from a warm
+   round as in phase 30a, under ``WAN_TRACE`` and ``WAN_PROFILES``
+   (designed with ``python -m fedml_tpu_torch.wan curve`` at 200 clients
+   and 4 silos: a flap takes 2 silos' devices off in rounds 1-2, they
+   come back in rounds 3 and 4, the lower half of the day takes one off
+   in round 6, never fewer than 2 online). The counts are set to 0 just
+   before and read just after. The whole schedule closes; evictions,
+   rejoins and partial rounds are each >= 1 and no cohort is forced;
+   every round's cohort is trace-available at its sim time and its
+   reporters are trace-online silos; each close's kernel output is
+   within 1e-6 of the streaming fold; one aggregation launch a close and
+   the int8 launches as the recorded broadcasts, decodes and replies
+   imply; and the first broadcast a silo applies after its device was
+   dark is full precision. It prints the phase's time.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -4169,6 +4185,198 @@ def phase_fault_tolerance():
     return out
 
 
+WAN_R = 8  # rounds of the WAN federation (phase 31)
+WAN_SILOS = 4
+#: designed with ``python -m fedml_tpu_torch.wan curve --trace ...
+#: --population 200 --workers 4 --rounds 8``: silos [####] [##..] [##..]
+#: [##.#] [####] [####] [###.] [####]
+WAN_TRACE = ("seed=6;period_s=960;phase0_s=480;peak=0.98;trough=0.5;"
+             "duty_jitter=0.05;slot_s=120;flap=60:120:0.5")
+#: a cross-silo WAN link (100 Mbit/s floor) and a lognormal local round;
+#: the sim delays are scaled by WAN_DELAY_SCALE into wall seconds
+WAN_PROFILES = ("seed=5;compute_median_s=0.1;compute_sigma=0.5;"
+                "up_min_bps=1.25e7;down_min_bps=1.25e7;bw_alpha=1.6;"
+                "delay_cap_s=2.0")
+WAN_DELAY_SCALE = 0.1
+
+
+def _wan_world(deadline):
+    """Phase 31's world: its timings are fractions of the deadline, so a
+    trace-offline silo JOINs (and is deferred) inside the round that
+    evicts it, and an online silo's injected delay never reaches the
+    deadline."""
+    from fedml_tpu_torch.wan import WanWorld
+    return WanWorld(trace=WAN_TRACE, profiles=WAN_PROFILES, round_s=60.0,
+                    delay_scale=WAN_DELAY_SCALE,
+                    delay_wall_cap_s=deadline / 5,
+                    offline_hold_s=0.3 * deadline,
+                    join_retry_s=0.25 * deadline)
+
+
+def phase_wan_world():
+    """Phase 31: the CNN's deadline federation on the card under a WAN
+    trace and client profiles, with its counts."""
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.comm.compression import is_compressed
+    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.ops import quantize as tq
+    from fedml_tpu_torch.utils.tracing import RoundTimer
+    from fedml_tpu_torch.wan.__main__ import cohorts_all_available
+
+    t0 = time.perf_counter()
+    ds, model, task, tc = _main_api_parts()
+    closes, fold_diffs, decodes = [], [], []
+
+    class recorded(_recording_server()):
+        """Also counts the compressed replies it decodes: a live silo that
+        waited out a deadline may JOIN just after the next broadcast and be
+        resynced into that round, and its second reply is decoded too."""
+
+        def _decode_model_payload(self, payload):
+            decodes.append(is_compressed(payload))
+            return super()._decode_model_payload(payload)
+
+    def kernel_close(stacked, weights):
+        out = aggregate.tree_weighted_mean_fused(stacked, weights)
+        fold = cs.FedAvgAggregator(int(weights.shape[0]))
+        for i, w in enumerate(weights.tolist()):
+            fold.add_local_trained_result(
+                i, {k: v[i] for k, v in stacked.items()}, w)
+        closes.append(int(weights.shape[0]))
+        fold_diffs.append(_max_diff(out, fold.aggregate()))
+        return out
+
+    def run(rounds, deadline, world=None, heartbeat_s=0.0):
+        def factory(size, com, _agg, global_model, on_round_done):
+            return recorded(
+                0, size, com, cs.FedAvgAggregator(
+                    size - 1, aggregate_fn=kernel_close), rounds,
+                ds.client_num, global_model, on_round_done=on_round_done,
+                compression="delta_int8", round_deadline_s=deadline,
+                wan=world)
+        timer = RoundTimer()
+        _, hist, server = cs.launch_federation(
+            ds, model, task, WAN_SILOS, tc, factory,
+            compression="delta_int8", heartbeat_s=heartbeat_s, timer=timer,
+            wan=world, device="cuda", join_timeout_s=300)
+        torch.cuda.synchronize()
+        return hist, server, timer
+
+    # the round wall the deadline is sized from (no world, warm)
+    _, _, warm = run(2, None)
+    wall = warm.round_records()[1]["duration_s"]
+    deadline = max(5.0 * wall, 1.0)
+    world = _wan_world(deadline)
+    # each silo's applied broadcasts (round, compressed) and dropped rounds
+    events = {r: [] for r in range(1, WAN_SILOS + 1)}
+    apply_, train = (cs.FedAvgClientManager._apply_broadcast,
+                     cs.FedAvgClientManager._train_and_reply)
+
+    def on_apply(self, msg):
+        events[self.rank].append(("apply", msg.get(cs.MSG_ARG_KEY_ROUND),
+                                  is_compressed(msg.get(
+                                      cs.MSG_ARG_KEY_MODEL_PARAMS))))
+        return apply_(self, msg)
+
+    def on_train(self, msg):
+        drops = self._wan_agent.counters["wan_offline_drops"]
+        train(self, msg)
+        if self._wan_agent.counters["wan_offline_drops"] > drops:
+            events[self.rank].append(("drop", msg.get(cs.MSG_ARG_KEY_ROUND),
+                                      None))
+    cs.FedAvgClientManager._apply_broadcast = on_apply
+    cs.FedAvgClientManager._train_and_reply = on_train
+    closes.clear()
+    fold_diffs.clear()
+    decodes.clear()
+    aggregate.weighted_mean_flat.launches = 0
+    tq.quantize_int8.launches = 0
+    tq.dequantize_int8.launches = 0
+    t = time.perf_counter()
+    try:
+        hist, server, timer = run(WAN_R, deadline, world, deadline / 10)
+    finally:
+        cs.FedAvgClientManager._apply_broadcast = apply_
+        cs.FedAvgClientManager._train_and_reply = train
+    wall_s = time.perf_counter() - t
+    launches = {"aggregate": aggregate.weighted_mean_flat.launches,
+                "quant": tq.quantize_int8.launches,
+                "dequant": tq.dequantize_int8.launches}
+    ledger = [r for r in timer.round_records()]
+    reported = [len(r["reported"]) for r in ledger]
+    c = {k: int(v) for k, v in timer.counters.items()
+         if k.startswith(("ft_", "wan_"))}
+    if len(hist) != WAN_R or [r["round"] for r in ledger] != list(
+            range(WAN_R)):
+        raise AssertionError(f"WAN run: the schedule did not close: "
+                             f"{[r['round'] for r in ledger]}")
+    if min(c["ft_evictions"], c["ft_rejoins"],
+           c["ft_partial_rounds"]) < 1 or c.get("wan_forced_cohorts", 0):
+        raise AssertionError(f"WAN run: counters {c}")
+    if not cohorts_all_available(ledger, world):
+        raise AssertionError(f"WAN run: a cohort member was trace-offline: "
+                             f"{[r['cohort'] for r in ledger]}")
+    offline = [(r["round"], w) for r in ledger for w in r["reported"]
+               if not world.silo_online(w + 1, r["round"])]
+    if offline:
+        raise AssertionError(f"WAN run: reports from trace-offline silos "
+                             f"(round, worker) {offline}")
+    if closes != reported or launches["aggregate"] != WAN_R:
+        raise AssertionError(f"WAN run: aggregation launches "
+                             f"{launches['aggregate']} at C = {closes}, the "
+                             f"rounds' reporters {reported}")
+    if not max(fold_diffs) <= 1e-6:
+        raise AssertionError(f"WAN run: the kernel's closes against the "
+                             f"streaming fold: {fold_diffs}")
+    applies = [e for ev in events.values() for e in ev if e[0] == "apply"]
+    sent = len(applies)  # every applied broadcast is replied to
+    compressed = sum(1 for _, comp, _ in server.bcasts if comp)
+    decoded = sum(1 for e in applies if e[2])
+    if not all(decodes) or len(decodes) < sum(reported):
+        raise AssertionError(f"WAN run: {len(decodes)} replies decoded "
+                             f"({sum(decodes)} compressed), {sum(reported)} "
+                             "folded")
+    _check_launches("WAN run", {k: launches[k] for k in (
+        "quant", "dequant")}, {
+            "quant": sent + compressed,
+            "dequant": len(decodes) + compressed + decoded})
+    rebased = []
+    for rank, ev in events.items():
+        for i, (kind, rnd, _) in enumerate(ev):
+            if kind != "drop":
+                continue
+            nxt = next((e for e in ev[i + 1:] if e[0] == "apply"), None)
+            if nxt is not None and nxt[2]:
+                raise AssertionError(f"WAN run: silo {rank} dark in round "
+                                     f"{rnd} decoded a compressed broadcast "
+                                     f"in round {nxt[1]}")
+            if nxt is not None:
+                rebased.append((rank, rnd, nxt[1]))
+    if not rebased:
+        raise AssertionError(f"WAN run: no silo came back after a dark "
+                             f"round: {events}")
+    _check_evals("WAN run", hist, list(range(WAN_R)), falls=False)
+    rows = [(r["round"], r["reported"], r["partial"]) for r in ledger]
+    out = {"launches": launches, "close_c": closes, "wall_s": wall_s,
+           "round_wall_s": wall, "deadline_s": deadline, "rounds": rows,
+           "counters": c, "rebased": rebased,
+           "max_abs_diff_to_fold": max(fold_diffs),
+           "available_frac": [r.get("wan_available_frac") for r in ledger]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"WAN run ({_smi()}): CNN, {WAN_SILOS} silos, delta_int8, round "
+        f"wall {wall:.4f} s -> deadline {deadline:.3f} s; (round, "
+        f"reporters, partial) {rows}; dark rounds -> first full-precision "
+        f"apply (silo, dark round, round) {rebased}; C a round {closes}; "
+        f"launches {launches}, as the schedule implies ({compressed} "
+        f"compressed broadcasts, {decoded} silo decodes, {sent} replies "
+        f"sent, {len(decodes)} decoded, {sum(reported)} folded); the kernel "
+        f"vs the fold "
+        f"{max(fold_diffs):.3g}; {c}; {wall_s:.1f} s")
+    log(f"phase 31 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _build_each_federation_once() -> None:
     """Each generated federation is built once in a run and handed to every
     later entry-point call with the same arguments: the builders are pure
@@ -4230,6 +4438,7 @@ def main() -> None:
     log(f"phases 27-28 took {record['sockets_s']:.1f} s")
     record["observability"] = phase_observability()
     record["fault_tolerance"] = phase_fault_tolerance()
+    record["wan"] = phase_wan_world()
     k = record["kernel"]
     zoo = record["zoo_models"]
     kernels = [{
@@ -4268,6 +4477,8 @@ def main() -> None:
             record["fault_tolerance"]["deadline"]["launches"]["aggregate"],
         "deadline_close_c":
             record["fault_tolerance"]["deadline"]["close_c"],
+        "launches_wan": record["wan"]["launches"]["aggregate"],
+        "wan_close_c": record["wan"]["close_c"],
         "launches_slice_f": {
             **{a: record["split_vertical_paths"][a]["launches"]
                for a in ("vertical_fl", "split_nn")},
@@ -4319,6 +4530,7 @@ def main() -> None:
                 record["observability"]["silo"]["launches"][kern],
             "launches_deadline":
                 record["fault_tolerance"]["deadline"]["launches"][kern],
+            "launches_wan": record["wan"]["launches"][kern],
             "max_abs_err": record["quant"]["max_abs_err"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -66,9 +66,19 @@ full-precision resync of the mirror, so the compressed downlink chain
 stays coherent. ``fault_plan`` wraps every endpoint in the seeded fault
 injector (``comm/faults.py``).
 
+With a WAN world (``wan``, or ``wan_trace`` / ``wan_profiles`` /
+``wan_round_s``; ``fedml_tpu_torch/wan``) the population dynamics drive
+the same protocol: the server samples availability-restricted cohorts,
+evicts trace-offline silos at the deadline, answers a trace-offline
+silo's JOIN with BACKPRESSURE and re-admits it at the first round
+boundary where its device is online again, with a full-precision
+rebase; each silo's agent drops the broadcasts of rounds its device is
+offline (and goes dark) and sleeps its client's profiled report delay
+before replying. The ``wan_*`` counters land in the timer.
+
 Not ported yet, each raising ``NotImplementedError`` when set: the
-control plane and serving (item 23), the WAN world (22f) and the
-multi-job scheduler hooks (22g) (see ROADMAP Slice D).
+control plane and serving (item 23) and the multi-job scheduler hooks
+(22g) (see ROADMAP Slice D).
 """
 
 from __future__ import annotations
@@ -109,6 +119,7 @@ from fedml_tpu_torch.trainer.functional import (TrainConfig,
 from fedml_tpu_torch.utils.device import resolve_device, synchronize
 from fedml_tpu_torch.utils.tracing import RoundTimer
 from fedml_tpu_torch.utils.watchdog import SiloLivenessTable
+from fedml_tpu_torch.wan import build_wan_world, compose_fault_plan
 
 # -- message schema (reference message_define.py) ---------------------------
 MSG_TYPE_S2C_INIT_CONFIG = 1
@@ -124,10 +135,10 @@ MSG_TYPE_C2S_HEARTBEAT = 10
 #: an evicted or restarted silo asking back in: the server re-admits it
 #: with a full-precision resync of the mirror
 MSG_TYPE_C2S_JOIN = 11
-#: the server refused a JOIN's resync for now (the JAX package's JOIN
-#: admission control, ROADMAP item 23, sends it; the port's server does
-#: not yet); carries ``retry_after_s``, and the silo defers its next JOIN
-#: by that long (its heartbeats keep beating)
+#: the server refused a JOIN's resync for now (a WAN-deferred JOIN: the
+#: silo's device is still offline in the trace); carries
+#: ``retry_after_s``, and the silo defers its next JOIN by that long (its
+#: heartbeats keep beating)
 MSG_TYPE_S2C_JOIN_BACKPRESSURE = 12
 
 MSG_ARG_KEY_MODEL_PARAMS = Message.MSG_ARG_KEY_MODEL_PARAMS
@@ -195,6 +206,11 @@ class FedAvgAggregator:
         self.flag_client_model_uploaded = [False] * worker_num
         self._aggregate_fn = aggregate_fn
         self._streaming = aggregate_fn is None
+        #: the cohort draw's override (the WAN world's availability-
+        #: restricted sampler), or None for the seeded stream. It must be
+        #: a pure function of its arguments: the silos' prefetch predicts
+        #: cohorts from the round index alone
+        self.sampler = None
         self._reset_round()
 
     def add_local_trained_result(self, worker_idx: int, model_params,
@@ -317,6 +333,9 @@ class FedAvgAggregator:
 
     def client_sampling(self, round_idx: int, client_num_in_total: int,
                         client_num_per_round: int) -> np.ndarray:
+        if self.sampler is not None:
+            return self.sampler(round_idx, client_num_in_total,
+                                client_num_per_round)
         return sample_clients(round_idx, client_num_in_total,
                               client_num_per_round)
 
@@ -354,7 +373,8 @@ class FedAvgServerManager(ServerManager):
                  timer: Optional[RoundTimer] = None,
                  round_deadline_s: Optional[float] = None,
                  min_quorum_frac: float = 0.5,
-                 max_deadline_extensions: Optional[int] = 25):
+                 max_deadline_extensions: Optional[int] = 25,
+                 wan=None):
         super().__init__(rank, size, com_manager)
         self._device_lock = _DEVICE_LOCK
         self.aggregator = aggregator
@@ -415,6 +435,21 @@ class FedAvgServerManager(ServerManager):
         self._mirror_fp = None
         #: worker -> (held seq, held structure fp) from its last reply
         self._worker_base: Dict[int, tuple] = {}
+        # -- the WAN world (fedml_tpu_torch/wan), None: off -----------------
+        #: a pure function of (seed, round), so it is not checkpointed: a
+        #: resumed server rebuilds the same dynamics from its arguments
+        self._wan = wan
+        if wan is not None:
+            self.aggregator.sampler = wan.sample_cohort
+        #: worker -> (round, deferrals of its JOIN in that round): the
+        #: anti-starvation valve's count (WanWorld
+        #: .max_join_deferrals_per_round)
+        self._wan_join_deferrals: Dict[int, tuple] = {}
+        #: workers whose JOIN was deferred while their device was offline,
+        #: re-admitted together at the first round boundary where the
+        #: trace has them online (:meth:`_wan_admit_pending`), so the
+        #: rejoin round is a pure function of the trace
+        self._wan_pending_joins: set = set()
         if checkpoint_mgr is not None and resume:
             restored = checkpoint_mgr.restore_latest(
                 self._checkpoint_state())
@@ -751,7 +786,7 @@ class FedAvgServerManager(ServerManager):
         # the round record's counters are this round's traffic (the perf
         # record's wire bytes/s derive from exactly these)
         self._credit_wire_bytes()
-        rec = tm.end_round(self.round_idx, extra={
+        extra = {
             "cohort": self._round_cohort,
             "reported": [int(w) for w in reported],
             "live": [int(w) for w in live],
@@ -759,7 +794,26 @@ class FedAvgServerManager(ServerManager):
             "evictions": int(self.liveness.evictions),
             "rejoins": int(self.liveness.rejoins),
             "deadline_s": (float(self.round_deadline_s)
-                           if self.round_deadline_s else None)})
+                           if self.round_deadline_s else None)}
+        if self._wan is not None:
+            # the world's sampling counters into THIS round's delta, then
+            # the population-scale churn estimate (the mass JOIN wave
+            # against the shadow admission bucket), all pure functions of
+            # (trace seed, round)
+            for k, v in self._wan.drain_counters().items():
+                tm.count(k, v)
+            joins, leaves, throttled = self._wan.mass_churn(self.round_idx)
+            if joins:
+                tm.count("wan_mass_joins", joins)
+            if leaves:
+                tm.count("wan_mass_leaves", leaves)
+            if throttled:
+                tm.count("wan_mass_join_throttled", throttled)
+            frac = self._wan.available_frac(self.round_idx)
+            if frac is not None:
+                tm.gauge("wan_available_frac", frac)
+                extra["wan_available_frac"] = round(frac, 4)
+        rec = tm.end_round(self.round_idx, extra=extra)
         if self.obs is not None:
             # the server derives wire bytes/s and the card's memory per
             # round (MFU stays silo-side: the server only aggregates)
@@ -781,10 +835,34 @@ class FedAvgServerManager(ServerManager):
         if self.round_idx == self.comm_round:
             self._finish_federation()
             return
+        self._wan_admit_pending()
         idxs = self.aggregator.client_sampling(
             self.round_idx, self.client_num_in_total, self.worker_num)
         self._broadcast_model(MSG_TYPE_S2C_SYNC_MODEL, idxs)
         self._arm_deadline()
+
+    def _wan_admit_pending(self) -> None:
+        """Re-admit, at a round boundary, the silos whose JOIN was deferred
+        while their device was offline and whose trace is online at the
+        new round, so the rejoin round is a pure function of the trace
+        seed, not of a race between JOIN retries and the other replies.
+        The admitted silo rides the next broadcast; its reported base is
+        poisoned, so that broadcast is full precision (one full frame a
+        rejoin, as the JOIN resync)."""
+        if self._wan is None or not self._wan_pending_joins:
+            return
+        for worker in sorted(self._wan_pending_joins):
+            if not self._wan.silo_online(worker + 1, self.round_idx):
+                continue
+            self._wan_pending_joins.discard(worker)
+            self.liveness.admit(worker)
+            self._worker_base[worker] = (-3, "wan-rejoin")
+            # its first reply measures the outage, not its pace
+            self._resynced_round[worker] = self.round_idx
+            logging.info(
+                "silo %d re-admitted at round %d (WAN trace back online; "
+                "deferred JOIN batch): the next broadcast full-rebases it",
+                worker + 1, self.round_idx)
 
     # -- fault tolerance: the deadline, heartbeats, JOIN ---------------------
     def handle_round_timeout(self, msg: Message) -> None:
@@ -800,6 +878,20 @@ class FedAvgServerManager(ServerManager):
             return
         live = self.liveness.live_workers()
         reported = self.aggregator.reported_set()
+        if self._wan is not None:
+            # the trace is the availability oracle: a live silo whose
+            # device is offline this round can never report, so it leaves
+            # the quorum's denominator now (evicted; it rejoins through
+            # the trace-gated JOIN like any eviction)
+            for w in sorted(live - reported):
+                if not self._wan.silo_online(w + 1, self.round_idx) \
+                        and self.liveness.evict(w):
+                    self._worker_base.pop(w, None)
+                    logging.warning(
+                        "silo %d is trace-offline at the round-%d deadline: "
+                        "evicted from the quorum denominator (WAN "
+                        "availability oracle)", w + 1, self.round_idx)
+            live = self.liveness.live_workers()
         need = max(1, math.ceil(self.min_quorum_frac * max(1, len(live))))
         if len(reported) < need:
             if self._note_deadline_extension():
@@ -871,7 +963,10 @@ class FedAvgServerManager(ServerManager):
                 and self.aggregator.has_reported(worker):
             # live and already reported: it is waiting out the round
             return
+        if self._wan_defers_join(worker):
+            return
         self.liveness.admit(worker)
+        self._wan_pending_joins.discard(worker)
         self._worker_base.pop(worker, None)
         if not self._evict_on_deadline:
             # the strict barrier: JOIN is proof of life only (a resync
@@ -889,8 +984,15 @@ class FedAvgServerManager(ServerManager):
         with self._device_lock:
             payload = to_numpy(self._mirror if self._mirror is not None
                                else self.global_model)
-        idxs = self.aggregator.client_sampling(
-            self.round_idx, self.client_num_in_total, self.worker_num)
+        if self._wan is not None:
+            # a redraw of this round's cohort, telemetry-silent: the
+            # broadcast's draw already counted it
+            idxs = self._wan.sample_cohort(
+                self.round_idx, self.client_num_in_total, self.worker_num,
+                record=False)
+        else:
+            idxs = self.aggregator.client_sampling(
+                self.round_idx, self.client_num_in_total, self.worker_num)
         out = Message(MSG_TYPE_S2C_SYNC_MODEL, self.rank, worker + 1)
         out.add(MSG_ARG_KEY_MODEL_PARAMS, payload)
         out.add(MSG_ARG_KEY_CLIENT_INDEX, int(idxs[worker]))
@@ -902,6 +1004,43 @@ class FedAvgServerManager(ServerManager):
             if self.liveness.evict(worker):
                 logging.warning("resync to rejoining silo %d failed (%r): "
                                 "evicted again", worker + 1, exc)
+
+    def _wan_defers_join(self, worker: int) -> bool:
+        """The WAN rejoin gate: while the silo's device is offline in the
+        trace, its JOIN is remembered for the round-boundary admit and
+        answered with BACKPRESSURE (``join_retry_s``); True when deferred.
+        The anti-starvation valve: the virtual clock advances only at
+        round closes, so with every live silo dark the trace would freeze
+        and every JOIN wait forever. Past
+        ``max_join_deferrals_per_round`` deferrals of one silo's JOIN in
+        one round the world forces it online (the server's gates and the
+        silo's own agent) and the JOIN is admitted."""
+        if self._wan is None or self._wan.silo_online(worker + 1,
+                                                      self.round_idx):
+            return False
+        self._wan_pending_joins.add(worker)
+        r, n = self._wan_join_deferrals.get(worker, (-1, 0))
+        n = n + 1 if r == self.round_idx else 1
+        self._wan_join_deferrals[worker] = (self.round_idx, n)
+        if n > self._wan.max_join_deferrals_per_round:
+            logging.warning(
+                "silo %d JOIN deferred %d times inside round %d with the "
+                "trace frozen: admitting it anyway (WAN anti-starvation "
+                "valve)", worker + 1, n - 1, self.round_idx)
+            self._wan.force_online(worker + 1)
+            self._wan_pending_joins.discard(worker)
+            return False
+        self.round_timer.count("wan_join_deferred")
+        out = Message(MSG_TYPE_S2C_JOIN_BACKPRESSURE, self.rank, worker + 1)
+        out.add(MSG_ARG_KEY_RETRY_AFTER, float(self._wan.join_retry_s))
+        try:
+            self.send_message(out)
+        except OSError as exc:
+            logging.debug("backpressure reply to silo %d failed: %r",
+                          worker + 1, exc)
+        logging.info("silo %d JOIN deferred (device offline in the WAN "
+                     "trace): backpressure sent", worker + 1)
+        return True
 
 
 class FedOptServerManager(FedAvgServerManager):
@@ -964,7 +1103,14 @@ class FedAvgClientManager(ClientManager):
     while the silo is idle, and after three beats without a broadcast
     sends JOIN instead (the silo was evicted, or the server forgot it); a
     long local training is not silence. A BACKPRESSURE reply defers the
-    next JOIN."""
+    next JOIN.
+
+    With ``wan_agent`` (a :class:`~fedml_tpu_torch.wan.WanAgent`) the silo
+    embodies a churning device: a broadcast of a round its device is
+    offline is dropped (no training, no reply) and the silo goes dark
+    (no beats, no JOIN) for the world's ``offline_hold_s``; an online
+    round sleeps its client's profiled report delay, outside the device
+    lock, before the reply."""
 
     def __init__(self, rank: int, size: int, com_manager,
                  dataset: FederatedDataset, module, task: str,
@@ -973,9 +1119,11 @@ class FedAvgClientManager(ClientManager):
                  state_dir: Optional[str] = None, resume: bool = False,
                  prefetch_depth: int = 2, device="cuda",
                  timer: Optional[RoundTimer] = None, obs=None,
-                 heartbeat_s: float = 0.0):
+                 heartbeat_s: float = 0.0, wan_agent=None):
         super().__init__(rank, size, com_manager)
         self.dataset = dataset
+        #: the WAN world's agent for this silo, or None: off
+        self._wan_agent = wan_agent
         #: this silo's observability bundle (its own flight log) or None
         self._obs = obs
         #: rounds this silo trained and replied to (the digest's progress)
@@ -1048,9 +1196,15 @@ class FedAvgClientManager(ClientManager):
 
     def _predict_next(self, key):
         """Next round's sampled client for this silo under the server's
-        deterministic stream."""
+        deterministic stream; under a WAN world the same pure
+        availability-restricted draw, telemetry-silent (the server counts
+        its own draws)."""
         r = key[0] + 1
-        idxs = sample_clients(r, self.dataset.client_num, self.size - 1)
+        if self._wan_agent is not None:
+            idxs = self._wan_agent.world.sample_cohort(
+                r, self.dataset.client_num, self.size - 1, record=False)
+        else:
+            idxs = sample_clients(r, self.dataset.client_num, self.size - 1)
         if self.rank - 1 >= len(idxs):
             return (r, None)
         return (r, int(idxs[self.rank - 1]))
@@ -1111,6 +1265,11 @@ class FedAvgClientManager(ClientManager):
         """Beat while idle; send JOIN once the server has been silent past
         ``rejoin_idle_s`` (we were evicted, or the server restarted)."""
         while not self._hb_stop.wait(self.heartbeat_s):
+            if self._wan_agent is not None \
+                    and not self._wan_agent.online_now():
+                # the device is dark: no beats (the deadline evicts it),
+                # no JOIN (the rejoin waits for the trace)
+                continue
             with self._hb_lock:
                 idle = time.monotonic() - self._last_s2c
                 busy = self._busy
@@ -1216,11 +1375,31 @@ class FedAvgClientManager(ClientManager):
                 self._busy = False
                 self._last_s2c = time.monotonic()
 
+    def _wan_payload_bytes(self) -> float:
+        """The model frame's size for the WAN bandwidth model: the held
+        state dict's f32 bytes (0 before the first broadcast)."""
+        if self._held is None:
+            return 0.0
+        return 4.0 * sum(v.numel() for v in self._held.values())
+
     def _train_and_reply(self, msg: Message) -> None:
         t0 = time.perf_counter()
         tm = self._timer
         client_idx = int(msg.get(MSG_ARG_KEY_CLIENT_INDEX))
         round_idx = msg.get(MSG_ARG_KEY_ROUND)
+        wan_delay = 0.0
+        if self._wan_agent is not None:
+            # decided before the broadcast applies: an offline device never
+            # got the frame, so its held model goes stale and the server's
+            # next broadcast to it is a full rebase
+            nbytes = self._wan_payload_bytes()
+            drop, wan_delay = self._wan_agent.on_round(
+                round_idx, client_idx, up_bytes=nbytes, down_bytes=nbytes)
+            if drop:
+                logging.info("silo %d: device offline in the WAN trace at "
+                             "round %s: dropping the broadcast (no training, "
+                             "no reply)", self.rank, round_idx)
+                return
         variables = self._apply_broadcast(msg)
         packed = None
         if self._prefetch is not None:
@@ -1282,6 +1461,11 @@ class FedAvgClientManager(ClientManager):
                 {"kind": "round", "round": int(round_idx),
                  "client_idx": int(client_idx),
                  "train_s": round(time.perf_counter() - t0, 6)})
+        if wan_delay > 0:
+            # the injected report latency, outside the device lock: a
+            # straggler straggles alone (the busy flag is still up, so the
+            # heartbeat thread does not read the sleep as eviction)
+            time.sleep(wan_delay)
         try:
             self.send_message(reply)
         except OSError as exc:
@@ -1303,9 +1487,6 @@ _NOT_PORTED = {
     "join_rate_limit": "Slice D item 23 (control plane)",
     "serve_port": "Slice D item 23 (serving)",
     "serving": "Slice D item 23 (serving)",
-    "wan_trace": "Slice D item 22f (the WAN world)",
-    "wan_profiles": "Slice D item 22f (the WAN world)",
-    "wan": "Slice D item 22f (the WAN world)",
     "comm_factory": "Slice D item 22g (the multi-job scheduler)",
     "device_gate": "Slice D item 22g (the multi-job scheduler)",
 }
@@ -1391,17 +1572,28 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
     ``comm/faults.py``) wraps every endpoint in the seeded fault
     injector. The fault-tolerance counters land in ``timer`` as ``ft_*``.
 
+    The WAN world: ``wan_trace`` (and ``wan_profiles``, ``wan_round_s``)
+    build a :class:`~fedml_tpu_torch.wan.WanWorld` over the dataset's
+    clients; a prebuilt ``wan`` wins (see :func:`launch_federation`). A
+    ``fault_plan`` then composes with it through ``compose_fault_plan``.
+
     The signature is the JAX package's; the options the port does not run
     yet raise ``NotImplementedError`` when set, the server's here and the
     silos' and transport's in :func:`launch_federation`
-    (``serve_staleness_rounds`` and ``wan_round_s`` only take effect with
-    one of those, so they are accepted and unused). ``obs_dir`` gives
-    every rank a flight log under one ``job_id`` (see
-    :func:`launch_federation`)."""
+    (``serve_staleness_rounds`` only takes effect with one of those, so it
+    is accepted and unused). ``obs_dir`` gives every rank a flight log
+    under one ``job_id`` (see :func:`launch_federation`)."""
     _refuse_not_ported(
         server_checkpoint_dir=server_checkpoint_dir,
-        pace_steering=pace_steering, join_rate_limit=join_rate_limit,
-        wan_trace=wan_trace, wan_profiles=wan_profiles)
+        pace_steering=pace_steering, join_rate_limit=join_rate_limit)
+    if wan is None:
+        # the shadow mass-JOIN bucket's rate (the JAX launcher passes
+        # join_rate_limit) waits for item 23: set mass_join_rate on a
+        # prebuilt world
+        wan = build_wan_world(wan_trace, wan_profiles, wan_round_s,
+                              population=dataset.client_num)
+    if wan is not None and fault_plan:
+        fault_plan = compose_fault_plan(fault_plan)
     policy = resolve_compression(compression, compress=compress)
     checkpoint_mgr = None
     if checkpoint_dir:
@@ -1414,7 +1606,8 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
                       checkpoint_mgr=checkpoint_mgr, resume=resume,
                       compression=policy, round_deadline_s=round_deadline_s,
                       min_quorum_frac=min_quorum_frac,
-                      max_deadline_extensions=max_deadline_extensions)
+                      max_deadline_extensions=max_deadline_extensions,
+                      wan=wan)
         if server_optimizer:
             return FedOptServerManager(
                 0, size, server_com, aggregator, comm_round,
@@ -1530,7 +1723,12 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     ``conn_errors``, ``faults_injected``) and the server's protocol
     counters (evictions, rejoins, partial rounds, stale replies, corrupt
     frames, JOIN resyncs, heartbeats, deadline extensions) are summed into
-    the timer as ``ft_*``. ``obs_dir``
+    the timer as ``ft_*``. ``wan`` (a :class:`~fedml_tpu_torch.wan
+    .WanWorld`, which takes the dataset's client count as its population
+    when it has none) gives every silo its agent; the server factory
+    hands it to the server. The world's remaining counters and every
+    agent's (``wan_offline_drops``, ``wan_delay_injected_ms``) land in the
+    timer after the run. ``obs_dir``
     builds one observability bundle a rank (the server's with the
     slow-round profiler and the perf accountant) under one ``job_id``,
     derived once for the launch when unset; every recorder is closed on
@@ -1538,7 +1736,9 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     _refuse_not_ported(
         checkpoint_sync=state_sync,
         comm_factory=comm_factory, device_gate=device_gate,
-        serve_port=serve_port, serving=serving, wan=wan)
+        serve_port=serve_port, serving=serving)
+    if wan is not None and wan.population is None:
+        wan.population = dataset.client_num
     if not wire_codec:
         raise NotImplementedError(
             "wire_codec=False (the object hand-off) is not ported: the "
@@ -1623,7 +1823,8 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
                            if client_state_dir else None),
                 resume=resume, prefetch_depth=prefetch_depth, device=dev,
                 timer=timer, obs=observe(com, rank, "silo"),
-                heartbeat_s=heartbeat_s))
+                heartbeat_s=heartbeat_s,
+                wan_agent=wan.agent(rank) if wan is not None else None))
         threads = [threading.Thread(target=_actor(c.run, errors, stop_all),
                                     daemon=True, name=f"silo{c.rank}")
                    for c in clients]
@@ -1678,6 +1879,13 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     for key in ("partial_rounds", "stale_replies", "corrupt_frames",
                 "join_resyncs", "heartbeats", "deadline_extensions"):
         timer.count(f"ft_{key}", int(server.ft_counters.get(key, 0)))
+    if wan is not None:
+        # what the round closes did not drain, and every agent's totals
+        for k, v in wan.drain_counters().items():
+            timer.count(k, int(v))
+        for c in clients:
+            for k, v in c._wan_agent.counters.items():
+                timer.count(k, int(v))
     if server.scheduling_error is not None:
         # the server FINISHed the silos; surface the stall loudly
         raise server.scheduling_error

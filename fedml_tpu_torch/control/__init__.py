@@ -1,7 +1,12 @@
-"""The control plane's error type (the port's part of
-``fedml_tpu/control/__init__.py``). The rest of the control plane (the
-server snapshots, pace steering, JOIN admission) is ROADMAP Slice D item
-23 and raises ``NotImplementedError`` in the launchers."""
+"""The control plane's error type and its JOIN token bucket (the port's
+part of ``fedml_tpu/control/``): :class:`SchedulingStallError` and
+:class:`~fedml_tpu_torch.control.admission.JoinAdmissionController`,
+which backs the WAN world's shadow mass-JOIN bucket. The rest of the
+control plane (the server snapshots, pace steering, the server's JOIN
+admission) is ROADMAP Slice D item 23 and raises
+``NotImplementedError`` in the launchers."""
+
+from fedml_tpu_torch.control.admission import JoinAdmissionController
 
 
 class SchedulingStallError(RuntimeError):
@@ -11,4 +16,4 @@ class SchedulingStallError(RuntimeError):
     raises this instead of extending forever."""
 
 
-__all__ = ["SchedulingStallError"]
+__all__ = ["JoinAdmissionController", "SchedulingStallError"]

@@ -181,6 +181,95 @@ def _sample_clients_floyd(round_idx: int, total: int, per_round: int,
     return out
 
 
+def sample_clients_available(
+    round_idx: int,
+    client_num_in_total: int,
+    client_num_per_round: int,
+    is_available,
+    threshold: Optional[int] = None,
+    stats: Optional[dict] = None,
+) -> np.ndarray:
+    """Availability-restricted cohort draw: ``sample_clients`` composed
+    with a WAN availability trace (``fedml_tpu_torch/wan``). Cohorts come
+    only from clients ``is_available`` marks online, and the draw is a
+    pure function of ``(round_idx, is_available)``, where
+    ``is_available(cids: int64[n]) -> bool[n]`` is a pure vectorized
+    predicate. The draws are the JAX package's, bit for bit.
+
+    Two regimes, split at :data:`VIRTUAL_SAMPLE_THRESHOLD`:
+
+    - at or below it the available set is enumerated (O(N)) and the
+      cohort drawn from it with the seeded global stream. With fewer
+      available clients than the cohort, every one of them participates
+      and the rest are seeded draws with replacement from them;
+    - above it, seeded rejection sampling over uniform ids: expected
+      O(k / availability) time and memory, no per-client array.
+
+    A (nearly) dark population degrades the schedule instead of stalling
+    it: what the draw cannot fill from available clients comes from the
+    unrestricted stream, counted in ``stats["forced"]`` (the
+    ``wan_forced_cohorts`` counter). ``stats["rejected"]`` counts the
+    unavailable candidates skipped.
+    """
+    if threshold is None:
+        threshold = _virtual_sample_threshold()
+    total = int(client_num_in_total)
+    k = min(int(client_num_per_round), total)
+    if stats is None:
+        stats = {}
+    if total <= threshold:
+        avail = np.zeros(0, dtype=np.int64)
+        for lo in range(0, total, 1 << 17):
+            ids = np.arange(lo, min(lo + (1 << 17), total), dtype=np.int64)
+            on = ids[np.asarray(is_available(ids), dtype=bool)]
+            avail = np.concatenate([avail, on])
+        stats["rejected"] = stats.get("rejected", 0) + int(total
+                                                          - len(avail))
+        with locked_global_numpy_rng(round_idx) as rng:
+            if len(avail) >= k:
+                return rng.choice(avail, k, replace=False)
+            if len(avail) == 0:
+                # a dark population: the unrestricted draw
+                stats["forced"] = stats.get("forced", 0) + k
+                return rng.choice(total, k, replace=False)
+            stats["forced"] = stats.get("forced", 0) + (k - len(avail))
+            fill = rng.choice(avail, k - len(avail), replace=True)
+            return np.concatenate([avail, fill])
+    out: list = []
+    seen: set = set()
+    rejected = 0
+    batch = max(4 * k, 64)
+    budget = max(64 * k, 4096)  # candidate draws before giving up
+    with locked_global_numpy_rng(round_idx) as rng:
+        while len(out) < k and budget > 0:
+            cand = rng.randint(0, total, size=min(batch, budget))
+            budget -= len(cand)
+            ok = np.asarray(is_available(cand), dtype=bool)
+            for c, on in zip(cand.tolist(), ok.tolist()):
+                if not on:
+                    rejected += 1
+                    continue
+                if c in seen:
+                    continue
+                seen.add(c)
+                out.append(c)
+                if len(out) == k:
+                    break
+        forced = k - len(out)
+        while len(out) < k:
+            # the budget is spent (a nearly dark population): fill from
+            # the unrestricted stream
+            c = int(rng.randint(0, total))
+            if c in seen:
+                continue
+            seen.add(c)
+            out.append(c)
+    stats["rejected"] = stats.get("rejected", 0) + rejected
+    if forced:
+        stats["forced"] = stats.get("forced", 0) + forced
+    return np.asarray(out, dtype=np.int64)
+
+
 # -- counter hashes: the same bits on the CPU, on the card and in a CUDA graph
 
 _M32 = 0xFFFFFFFF

@@ -130,6 +130,33 @@ def add_federated_args(parser: argparse.ArgumentParser):
                              "of a round; past it the run fails loudly "
                              "(SchedulingStallError) instead of extending "
                              "forever. Negative = unbounded")
+    # -- WAN-realistic federation (fedml_tpu_torch/wan) ----------------------
+    parser.add_argument("--wan_trace", type=str, default=None,
+                        help="WAN world model (--algo fedavg_cross_silo): "
+                             "a seeded diurnal availability trace driving "
+                             "churn through the real protocol: cohorts "
+                             "sample only currently-available clients, "
+                             "trace-offline silos drop replies and get "
+                             "deadline-evicted, rejoin is trace-gated "
+                             "through JOIN. DSL like "
+                             "'seed=7;period_s=960;peak=0.95;trough=0.5;"
+                             "flap=180:120:0.5', inline JSON, or a .json "
+                             "path (see README 'WAN-realistic "
+                             "federation'). Unset = off")
+    parser.add_argument("--wan_profiles", type=str, default=None,
+                        help="heterogeneous client profiles for the WAN "
+                             "world: per-client compute (lognormal) and "
+                             "up/downlink bandwidth (Pareto) as pure "
+                             "functions of (seed, client id), injected as "
+                             "report delays. DSL like "
+                             "'compute_median_s=0.1;compute_sigma=0.8;"
+                             "bw_alpha=1.5'. Requires --wan_trace")
+    parser.add_argument("--wan_round_s", type=float, default=60.0,
+                        help="WAN virtual clock: simulated seconds per "
+                             "federation round (round r happens at sim "
+                             "time r * wan_round_s; the trace never reads "
+                             "the wall clock, so a churn run replays "
+                             "bit-identically under one seed)")
     parser.add_argument("--ci", type=int, default=0,
                         help="1 = tiny smoke-run truncation (reference --ci)")
     return parser

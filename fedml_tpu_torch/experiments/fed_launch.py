@@ -21,6 +21,9 @@ darts|gdas``, ``--arch_unrolled``, ``--arch_lr``,
 (``--backend inproc|tcp|grpc``), as do the fault-tolerance flags
 (``--round_deadline_s``, ``--min_quorum_frac``,
 ``--max_deadline_extensions``, ``--heartbeat_s``, ``--fault_plan``).
+fedavg_cross_silo also runs the WAN world (``--wan_trace``,
+``--wan_profiles``, ``--wan_round_s``); other algorithms warn and ignore
+those flags.
 fedavg_async runs the straggler-tolerant servers over the in-process
 router: ``--async_mode quorum`` (``--quorum``, ``--round_deadline_s``,
 10 s when unset) or ``fedasync`` (``--async_alpha``, ``--async_poly_a``,
@@ -244,6 +247,11 @@ def _dispatch(args, ds, model, task, sink):
                   seed=args.seed, train=tcfg)
     # the FedAvgConfig family prefetches; FedNova's loop packs serially
     fedavg_common = dict(common, prefetch_depth=args.prefetch_depth)
+    if args.wan_trace and args.algo != "fedavg_cross_silo":
+        logging.warning("--wan_trace/--wan_profiles are only wired for "
+                        "--algo fedavg_cross_silo (the WAN world drives the "
+                        "actor protocol's liveness and rejoin paths); "
+                        "ignoring for %r", args.algo)
     if args.algo == "fedavg":
         return BACKEND_RUNNERS[args.backend](args, ds, model, task, sink)
     if args.algo == "fedavg_cross_silo":
@@ -252,7 +260,7 @@ def _dispatch(args, ds, model, task, sink):
         silo_args = copy.copy(args)
         if silo_args.backend == "simulation":
             silo_args.backend = "inproc"
-        return run_cross_silo(silo_args, ds, model, task, sink)
+        return run_cross_silo(silo_args, ds, model, task, sink, wan=True)
     _warn_unwired(args)
     if args.algo == "fedavg_async":
         return _run_async(args, ds, model, task, sink, tcfg)

@@ -19,7 +19,10 @@ per-round perf records (MFU against the card's BF16 peak); read them with
 ``python -m fedml_tpu_torch.obs merge|report|tail <obs_dir>``.
 The cross-silo backends take the fault-tolerance flags
 ``--round_deadline_s``, ``--min_quorum_frac``, ``--max_deadline_extensions``,
-``--heartbeat_s`` and ``--fault_plan``. ``--backend spmd`` is not ported
+``--heartbeat_s`` and ``--fault_plan``. The WAN world's flags
+(``--wan_trace``, ``--wan_profiles``, ``--wan_round_s``) are parsed and,
+as in the JAX CLI, not passed on here: ``fed_launch --algo
+fedavg_cross_silo`` runs them. ``--backend spmd`` is not ported
 yet and raises ``NotImplementedError``; the control plane's flags
 (ROADMAP item 23) are not ported yet.
 
@@ -98,13 +101,15 @@ def run_simulation(args, ds, model, task, sink):
     return rec
 
 
-def run_cross_silo(args, ds, model, task, sink):
+def run_cross_silo(args, ds, model, task, sink, wan: bool = False):
     """The cross-silo protocol, one silo per sampled client (``worker_num =
     client_num_per_round``), evaluating every round, over the in-process
     router or (tcp, grpc) loopback sockets on ports ``BASE_PORT + rank``.
     Logs one record a round and a final summary record with the wire
     bytes, each round's duration and the phases' host ms (phases that end
-    in device work synchronize, so they include it)."""
+    in device work synchronize, so they include it). ``wan`` passes the
+    WAN world's flags on (``fed_launch --algo fedavg_cross_silo``; this
+    CLI, like the JAX one, does not)."""
     from fedml_tpu_torch.algorithms.fedavg_cross_silo import (
         run_fedavg_cross_silo)
     from fedml_tpu_torch.utils.tracing import RoundTimer
@@ -114,6 +119,9 @@ def run_cross_silo(args, ds, model, task, sink):
         addresses = {r: ("127.0.0.1", BASE_PORT + r)
                      for r in range(args.client_num_per_round + 1)}
     timer = RoundTimer()
+    wan_flags = (dict(wan_trace=args.wan_trace,
+                      wan_profiles=args.wan_profiles,
+                      wan_round_s=args.wan_round_s) if wan else {})
     _, history = run_fedavg_cross_silo(
         ds, model, task=task, worker_num=args.client_num_per_round,
         comm_round=args.comm_round, train_cfg=make_train_config(args),
@@ -126,7 +134,7 @@ def run_cross_silo(args, ds, model, task, sink):
         fault_plan=args.fault_plan,
         max_deadline_extensions=resolve_max_extensions(args),
         obs_dir=args.obs_dir, job_id=args.job_id, timer=timer,
-        device=args.device)
+        device=args.device, **wan_flags)
     for rec in history:
         sink.log(rec, step=rec["round"])
     rounds = max(1, len(history))
@@ -185,6 +193,10 @@ def main(argv=None):
     resolve_device(args.device)  # no GPU and no --device cpu: raise now
     _not_ported(args)
     logging.basicConfig(level=logging.INFO)
+    if args.wan_trace or args.wan_profiles:
+        logging.warning("--wan_trace/--wan_profiles are only wired for "
+                        "fed_launch --algo fedavg_cross_silo; ignoring them "
+                        "here, as the JAX CLI does")
     ds, model, task = build_dataset_and_model(args)
     sink = MetricsSink(args.run_dir, config=vars(args),
                        use_wandb=args.use_wandb)

@@ -306,8 +306,7 @@ NOT_PORTED = [
     ("server_checkpoint_dir", "/tmp/x"),
     ("checkpoint_sync", True), ("pace_steering", True),
     ("join_rate_limit", 2.0),
-    ("serve_port", 8000), ("serving", object()), ("wan_trace", "t"),
-    ("wan_profiles", "p"), ("wan", object()), ("comm_factory", print),
+    ("serve_port", 8000), ("serving", object()), ("comm_factory", print),
     ("device_gate", object())]
 
 
@@ -321,13 +320,16 @@ def test_unported_options_raise_and_name_their_item(name, value):
 @pytest.mark.parametrize("name", ["checkpoint_dir", "resume", "token",
                                   "server_optimizer", "obs_dir", "job_id",
                                   "round_deadline_s", "heartbeat_s",
-                                  "fault_plan"])
+                                  "fault_plan", "wan_trace", "wan_profiles",
+                                  "wan"])
 def test_formerly_refused_options_now_run(name, tmp_path):
     """The options the port ran without before: round checkpoints, resume,
     the routed transport's token, the FedOpt server, the flight recorder
-    with its job id (a pure observer: the same bits), and the fault
+    with its job id (a pure observer: the same bits), the fault
     tolerance of deadline rounds, heartbeats and a fault plan that never
-    fires (the same bits when no silo misses a deadline)."""
+    fires (the same bits when no silo misses a deadline), and the WAN
+    world under a trace that keeps every device online (the cohort draw
+    over all clients is the seeded stream's; profiles only delay)."""
     from fedml_tpu_torch import native
     ds = make_blob_federated(**BLOB)
     run = dict(worker_num=2, comm_round=1, train_cfg=TrainConfig(**TRAIN),
@@ -359,6 +361,19 @@ def test_formerly_refused_options_now_run(name, tmp_path):
         ids = {r["job_id"] for rank in range(3) for r in read_flight_log(
             str(tmp_path / f"flight_rank{rank}.jsonl"))}
         assert ids == {"j"} if name == "job_id" else len(ids) == 1
+    elif name in ("wan_trace", "wan_profiles", "wan"):
+        from fedml_tpu_torch.wan import WanWorld
+        flat = "seed=1;peak=1.0;trough=1.0;duty_jitter=0.0"
+        opts = {"wan_trace": {"wan_trace": flat},
+                "wan_profiles": {"wan_trace": flat, "wan_profiles":
+                                 "seed=5;compute_median_s=0.01"},
+                "wan": {"wan": WanWorld(trace=flat)}}[name]
+        timer = RoundTimer()
+        final, _ = cs.run_fedavg_cross_silo(ds, _lr(ds), timer=timer,
+                                            **opts, **run)
+        assert timer.counters["wan_offline_drops"] == 0
+        assert (timer.counters["wan_delay_injected_ms"] > 0) == (
+            name == "wan_profiles")
     elif name in ("round_deadline_s", "heartbeat_s", "fault_plan"):
         value = {"round_deadline_s": 30.0, "heartbeat_s": 0.05,
                  "fault_plan": "seed=3;drop:p=0.0"}[name]

@@ -265,6 +265,9 @@ def test_liveness_table_follows_jax():
         w: {k: v for k, v in r.items() if k != "silent_s"}
         for w, r in jsnap.items()}
     assert snap[0]["report_p50_s"] == 0.375 and snap[2]["live"] is False
+    # silent_s is rounded to 1 ms: worker 0's beat must come well after the
+    # table's construction (worker 1's last-seen time) to be ordered by it
+    time.sleep(0.02)
     ours.beat(0)
     time.sleep(0.05)
     ours.beat(5)
