@@ -254,7 +254,24 @@
    within 1e-6 of the streaming fold; one aggregation launch a close and
    the int8 launches as the recorded broadcasts, decodes and replies
    imply; and the first broadcast a silo applies after its device was
-   dark is full precision. It prints the phase's time.
+   dark is full precision. It prints the phase's time;
+32. the control plane (``fedml_tpu_torch/control``): the CNN's deadline
+   federation over 4 in-process silos through the failover harness
+   (``run_simulated_failover``), ``delta_int8`` on the uplink only, pace
+   steering from a base deadline of 12x a warm round's wall, the async
+   snapshot writer with group commit, the buffered close through the
+   aggregation kernel, cuDNN deterministic; two legs of 6 rounds: an
+   unkilled one, and one whose server dies before its round-3 broadcast
+   (its writer killed mid-write) while a fresh server on the same router
+   restores the newest snapshot and finishes. The counts are set to 0
+   just before each leg and read just after: ``cp_restores`` 1 on the
+   restored server, the two legs' ledger schedules and reporters equal,
+   the final models bit for bit; one aggregation launch a close (the
+   restored server's closes included, each within 1e-6 of the streaming
+   fold) and one ledger line a close, a quantize launch a reply and a
+   dequantize launch a decode. It prints ``cp_capture_ms``,
+   ``cp_flush_ms``, ``cp_fsync_total``, the steered deadlines and the
+   phase's time.
 
 Any failure raises, and the script exits non-zero without printing a
 result. Before the last line it prints one ``{"kernels": [...]}`` JSON
@@ -273,6 +290,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -4377,6 +4395,196 @@ def phase_wan_world():
     return out
 
 
+CP_R = 6  # rounds of each phase-32 leg
+CP_SILOS = 4
+CP_CRASH = 3  # the killed leg's server dies before this round's broadcast
+
+
+def phase_control_plane():
+    """Phase 32: the control plane on the card. The CNN's deadline
+    federation over 4 in-process silos through the failover harness, with
+    pace steering, the async writer (group commit) and ``delta_int8`` on
+    the uplink only: an unkilled leg, and a leg whose server dies before
+    its round-3 broadcast and whose fresh successor restores the newest
+    snapshot and finishes. Both legs close through the aggregation
+    kernel (the buffered close), cuDNN deterministic."""
+    import tempfile
+
+    import torch
+    from fedml_tpu_torch.algorithms import fedavg_cross_silo as cs
+    from fedml_tpu_torch.comm.compression import is_compressed
+    from fedml_tpu_torch.comm.policy import CompressionPolicy
+    from fedml_tpu_torch.control import ServerControlCheckpointer
+    from fedml_tpu_torch.control import failover_harness as fh
+    from fedml_tpu_torch.ops import aggregate
+    from fedml_tpu_torch.ops import quantize as tq
+
+    t0 = time.perf_counter()
+    policy = CompressionPolicy("delta_int8", downlink=False)
+    closes, fold_diffs, decodes, applies = [], [], [], []
+
+    def fixture(workers):
+        ds, model, _, tc = _main_api_parts()
+        return ds, model, tc
+
+    def kernel_close(stacked, weights):
+        out = aggregate.tree_weighted_mean_fused(stacked, weights)
+        fold = cs.FedAvgAggregator(int(weights.shape[0]))
+        for i, w in enumerate(weights.tolist()):
+            fold.add_local_trained_result(
+                i, {k: v[i] for k, v in stacked.items()}, w)
+        closes.append((threading.current_thread().name,
+                       int(weights.shape[0])))
+        fold_diffs.append(_max_diff(out, fold.aggregate()))
+        return out
+
+    decode, apply_ = (cs.FedAvgServerManager._decode_model_payload,
+                      cs.FedAvgClientManager._apply_broadcast)
+
+    def on_decode(self, payload):
+        decodes.append(is_compressed(payload))
+        return decode(self, payload)
+
+    def on_apply(self, msg):
+        applies.append(is_compressed(msg.get(cs.MSG_ARG_KEY_MODEL_PARAMS)))
+        return apply_(self, msg)
+
+    def leg(root, rounds, crash, deadline):
+        return fh.run_simulated_failover(
+            root, rounds=rounds, workers=CP_SILOS, crash_at_round=crash,
+            deadline_s=deadline, pace=True, device="cuda",
+            compression=policy, aggregate_fn=kernel_close, fixture=fixture,
+            join_timeout_s=300)
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cs.FedAvgServerManager._decode_model_payload = on_decode
+    cs.FedAvgClientManager._apply_broadcast = on_apply
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cp_") as root:
+            # the round wall the deadline is sized from (warm, no crash):
+            # 12x, so steering's floor (base / 4) stays 3x a round
+            _, _, warm = leg(os.path.join(root, "warm"), 2, 10**9, 600.0)
+            wall = warm.round_timer.round_records()[1]["duration_s"]
+            deadline = max(12.0 * wall, 2.0)
+            runs = {}
+            for name, crash in (("unkilled", 10**9), ("killed", CP_CRASH)):
+                closes.clear()
+                fold_diffs.clear()
+                decodes.clear()
+                applies.clear()
+                aggregate.weighted_mean_flat.launches = 0
+                tq.quantize_int8.launches = 0
+                tq.dequantize_int8.launches = 0
+                d = os.path.join(root, name)
+                t = time.perf_counter()
+                model, ledger, server = leg(d, CP_R, crash, deadline)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t
+                tm = server.round_timer
+                runs[name] = {
+                    "model": {k: torch.from_numpy(v)
+                              for k, v in model.items()},
+                    "ledger": ledger, "server": server, "wall_s": wall_s,
+                    "launches": {
+                        "aggregate": aggregate.weighted_mean_flat.launches,
+                        "quant": tq.quantize_int8.launches,
+                        "dequant": tq.dequantize_int8.launches},
+                    "closes": list(closes), "decodes": list(decodes),
+                    "applies": list(applies),
+                    "fold_diff": max(fold_diffs),
+                    "closes_logged": len(ServerControlCheckpointer(d)
+                                         .read_ledger(dedup=False)),
+                    "cp": {"capture_ms": tm.gauges.get("cp_capture_ms"),
+                           "flush_ms": tm.gauges.get("cp_flush_ms"),
+                           "fsync_total": tm.counters.get("cp_fsync_total"),
+                           "ledger_fsyncs":
+                               tm.counters.get("cp_ledger_fsyncs"),
+                           **{k: int(v) for k, v in
+                              server.cp_counters.items()}}}
+    finally:
+        cs.FedAvgServerManager._decode_model_payload = decode
+        cs.FedAvgClientManager._apply_broadcast = apply_
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    ref, kill = runs["unkilled"], runs["killed"]
+    if kill["cp"].get("restores") != 1 or ref["cp"].get("restores", 0):
+        raise AssertionError(f"control plane: restores {kill['cp']} / "
+                             f"{ref['cp']}")
+    if fh.ledger_schedule(kill["ledger"]) != fh.ledger_schedule(
+            ref["ledger"]) or [r["round"] for r in ref["ledger"]] != list(
+            range(CP_R)):
+        raise AssertionError(f"control plane: ledger schedules "
+                             f"{fh.ledger_schedule(kill['ledger'])} / "
+                             f"{fh.ledger_schedule(ref['ledger'])}")
+    reported = [[r["reported"] for r in run["ledger"]] for run in (ref, kill)]
+    if reported[0] != reported[1] or any(
+            rep != list(range(CP_SILOS)) for rep in reported[0]):
+        raise AssertionError(f"control plane: reporters {reported}")
+    _check_same_model("control plane: the restored run's final model",
+                      kill["model"], ref["model"])
+    for name, run in runs.items():
+        n = len(run["closes"])
+        servers = [s for s, _ in run["closes"]]
+        if run["launches"]["aggregate"] != n or n != run["closes_logged"] \
+                or any(c != CP_SILOS for _, c in run["closes"]):
+            raise AssertionError(
+                f"control plane {name}: aggregation launches "
+                f"{run['launches']['aggregate']} for {n} closes "
+                f"({run['closes']}), {run['closes_logged']} ledger lines")
+        if name == "killed" and (servers[:CP_CRASH] != ["server1"] * CP_CRASH
+                                 or "server2" not in servers):
+            raise AssertionError(f"control plane: closes by {servers}")
+        if not run["fold_diff"] <= 1e-6:
+            raise AssertionError(f"control plane {name}: the kernel's closes "
+                                 f"against the streaming fold: "
+                                 f"{run['fold_diff']}")
+        # downlink off: every broadcast is full precision, every reply one
+        # quantize on its silo and one dequantize where the server decodes
+        if any(run["applies"]) or not all(run["decodes"]):
+            raise AssertionError(f"control plane {name}: a compressed "
+                                 "broadcast or a full-precision reply")
+        _check_launches(f"control plane {name}", {
+            k: run["launches"][k] for k in ("quant", "dequant")}, {
+                "quant": len(run["applies"]),
+                "dequant": len(run["decodes"])})
+        if not run["cp"]["fsync_total"] or run["cp"]["capture_ms"] is None:
+            raise AssertionError(f"control plane {name}: {run['cp']}")
+    steered = [r["deadline_s"] for r in kill["ledger"]]
+    out = {"round_wall_s": wall, "deadline_s": deadline,
+           "steered_deadlines_s": {n: [r["deadline_s"] for r in run["ledger"]]
+                                   for n, run in runs.items()},
+           **{n: {k: run[k] for k in ("wall_s", "launches", "fold_diff",
+                                      "cp")} | {
+                      "closes": [c for _, c in run["closes"]],
+                      "restored_closes": sum(
+                          1 for s, _ in run["closes"] if s == "server2"),
+                      "replies": len(run["applies"]),
+                      "decodes": len(run["decodes"])}
+              for n, run in runs.items()}}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"control plane ({_smi()}): CNN, {CP_SILOS} silos, delta_int8 up, "
+        f"pace steering, async writer; round wall {wall:.4f} s -> base "
+        f"deadline {deadline:.3f} s, steered {steered}; killed before the "
+        f"round-{CP_CRASH} broadcast, restored once "
+        f"({out['killed']['restored_closes']} closes by the restored "
+        f"server), the ledger and the final model bit for bit the unkilled "
+        f"run's; launches {out['unkilled']['launches']} / "
+        f"{out['killed']['launches']} as the closes, replies and decodes "
+        f"imply; the kernel vs the fold "
+        f"{max(ref['fold_diff'], kill['fold_diff']):.3g}; cp_capture_ms "
+        f"{ref['cp']['capture_ms']:.3f} / {kill['cp']['capture_ms']:.3f}, "
+        f"cp_flush_ms {ref['cp']['flush_ms']:.3f} / "
+        f"{kill['cp']['flush_ms']:.3f}, cp_fsync_total "
+        f"{ref['cp']['fsync_total']} / {kill['cp']['fsync_total']} "
+        f"(unkilled / killed); legs {ref['wall_s']:.1f} s, "
+        f"{kill['wall_s']:.1f} s")
+    log(f"phase 32 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _build_each_federation_once() -> None:
     """Each generated federation is built once in a run and handed to every
     later entry-point call with the same arguments: the builders are pure
@@ -4439,6 +4647,7 @@ def main() -> None:
     record["observability"] = phase_observability()
     record["fault_tolerance"] = phase_fault_tolerance()
     record["wan"] = phase_wan_world()
+    record["control_plane"] = phase_control_plane()
     k = record["kernel"]
     zoo = record["zoo_models"]
     kernels = [{
@@ -4479,6 +4688,8 @@ def main() -> None:
             record["fault_tolerance"]["deadline"]["close_c"],
         "launches_wan": record["wan"]["launches"]["aggregate"],
         "wan_close_c": record["wan"]["close_c"],
+        "launches_cp": {leg: record["control_plane"][leg]["launches"][
+            "aggregate"] for leg in ("unkilled", "killed")},
         "launches_slice_f": {
             **{a: record["split_vertical_paths"][a]["launches"]
                for a in ("vertical_fl", "split_nn")},
@@ -4531,6 +4742,8 @@ def main() -> None:
             "launches_deadline":
                 record["fault_tolerance"]["deadline"]["launches"][kern],
             "launches_wan": record["wan"]["launches"][kern],
+            "launches_cp": {leg: record["control_plane"][leg]["launches"][
+                kern] for leg in ("unkilled", "killed")},
             "max_abs_err": record["quant"]["max_abs_err"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

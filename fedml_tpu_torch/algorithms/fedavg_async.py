@@ -33,11 +33,12 @@ import numpy as np
 from fedml_tpu_torch.algorithms.fedavg_cross_silo import (
     MSG_ARG_KEY_CLIENT_INDEX, MSG_ARG_KEY_MODEL_PARAMS,
     MSG_ARG_KEY_NUM_SAMPLES, MSG_ARG_KEY_ROUND, MSG_TYPE_S2C_SYNC_MODEL,
-    FedAvgServerManager, _refuse_not_ported, launch_federation)
+    FedAvgServerManager, launch_federation)
 from fedml_tpu_torch.comm.compression import (is_compressed, to_numpy,
                                               tree_to_device)
 from fedml_tpu_torch.comm.message import Message
 from fedml_tpu_torch.comm.policy import CompressionPolicy, resolve_compression
+from fedml_tpu_torch.control import build_control_plane
 from fedml_tpu_torch.core import pytree as pt
 from fedml_tpu_torch.utils.device import synchronize
 
@@ -59,6 +60,20 @@ class QuorumFedAvgServerManager(FedAvgServerManager):
         self.quorum = quorum
         self.round_deadline_s = round_deadline_s
         self.partial_rounds: List[int] = []
+
+    def _capture_extra(self, state) -> None:
+        state["partial_rounds"] = [int(r) for r in self.partial_rounds]
+        state["quorum"] = int(self.quorum)
+
+    def _restore_extra(self, state) -> None:
+        self.partial_rounds = [int(r) for r in state["partial_rounds"]]
+        # the deadline may have been steered; the absolute quorum is the
+        # launch's configuration and only checked
+        if int(state["quorum"]) != self.quorum:
+            logging.warning(
+                "restored snapshot was taken at quorum=%s, this launch "
+                "uses %d: continuing with the launch's", state.get("quorum"),
+                self.quorum)
 
     def handle_message_receive_model_from_client(self, msg: Message) -> None:
         # the base is noted before the stale discard: a straggler's reply
@@ -100,13 +115,15 @@ class QuorumFedAvgServerManager(FedAvgServerManager):
                 f"({received}/{self.quorum} updates) after "
                 f"{self._extensions_this_round - 1} deadline extensions "
                 f"(max_deadline_extensions={self._max_extensions}): the "
-                "federation cannot make progress")
+                "federation cannot make progress; final state "
+                "checkpointed")
             return
         if self.obs is not None:
             self.obs.note_anomaly(
                 "deadline_extension", self.round_idx,
                 {"reported": int(received), "need": int(self.quorum),
                  "extensions": int(self._extensions_this_round)})
+        self._save_control_snapshot()
         self._arm_deadline()
 
 
@@ -208,18 +225,16 @@ def run_fedavg_async(dataset, module, task: str = "classification",
 
     The scaffolding is :func:`~fedml_tpu_torch.algorithms.
     fedavg_cross_silo.launch_federation`'s; only the server differs. The
-    control plane's options (``server_checkpoint_dir``,
-    ``checkpoint_sync``, ``pace_steering``, ``join_rate_limit``) raise
-    ``NotImplementedError`` naming ROADMAP item 23. ``wire_codec=False``
-    (the JAX package's in-process object hand-off, its default here) is
-    not ported: every message crosses as an encoded frame."""
+    quorum server runs the control plane (``server_checkpoint_dir``,
+    ``checkpoint_sync``, ``pace_steering``, ``join_rate_limit``, see
+    ``run_fedavg_cross_silo``); FedAsync has no round schedule to
+    snapshot or steer, so there they are refused with a warning and not
+    applied, as in the JAX package. ``wire_codec=False`` (the JAX
+    package's in-process object hand-off, its default here) is not
+    ported: every message crosses as an encoded frame."""
     if mode not in ("quorum", "fedasync"):
         raise ValueError(f"unknown async mode: {mode!r} "
                          "(quorum | fedasync)")
-    _refuse_not_ported(server_checkpoint_dir=server_checkpoint_dir,
-                       checkpoint_sync=checkpoint_sync,
-                       pace_steering=pace_steering,
-                       join_rate_limit=join_rate_limit)
     policy = resolve_compression(compression)
     if mode == "fedasync" and policy.enabled:
         # FedAsync has no stable delta base: every silo runs full
@@ -229,6 +244,19 @@ def run_fedavg_async(dataset, module, task: str = "classification",
             "global model moves every update, so delta compression has no "
             "stable base; running full precision", policy.name)
         policy = CompressionPolicy("none")
+    if mode == "fedasync" and (server_checkpoint_dir or pace_steering):
+        logging.warning(
+            "server checkpoint/pace steering requested with "
+            "mode='fedasync': FedAsync has no round schedule to "
+            "checkpoint or steer; ignoring (use mode='quorum' or the "
+            "round-based servers)")
+    control = (build_control_plane(
+        server_checkpoint_dir=server_checkpoint_dir,
+        pace_steering=pace_steering, join_rate_limit=join_rate_limit,
+        round_deadline_s=round_deadline_s,
+        max_deadline_extensions=max_deadline_extensions,
+        checkpoint_sync=checkpoint_sync)
+        if mode == "quorum" else {})
 
     def server_factory(size, server_com, aggregator, global_model,
                        on_round_done):
@@ -238,7 +266,7 @@ def run_fedavg_async(dataset, module, task: str = "classification",
                 dataset.client_num, global_model, quorum=quorum,
                 round_deadline_s=round_deadline_s,
                 on_round_done=on_round_done, compression=policy,
-                max_deadline_extensions=max_deadline_extensions)
+                **control)
         return AsyncFedAvgServerManager(
             0, size, server_com, aggregator,
             client_num_in_total=dataset.client_num,

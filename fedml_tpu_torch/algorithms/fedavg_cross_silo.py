@@ -76,9 +76,18 @@ rebase; each silo's agent drops the broadcasts of rounds its device is
 offline (and goes dark) and sleeps its client's profiled report delay
 before replying. The ``wan_*`` counters land in the timer.
 
-Not ported yet, each raising ``NotImplementedError`` when set: the
-control plane and serving (item 23) and the multi-job scheduler hooks
-(22g) (see ROADMAP Slice D).
+The elastic control plane (``fedml_tpu_torch/control``):
+``server_checkpoint_dir`` snapshots the server's whole round-schedule
+state at every round boundary and deadline extension, and appends a
+round/cohort ledger line at every close; a killed and restarted server
+restores the newest snapshot and finishes the schedule with the unkilled
+run's ledger (and its final model, bit for bit, with the downlink
+uncompressed). ``pace_steering`` derives each round's deadline and
+quorum from the observed report latencies; ``join_rate_limit``
+token-buckets JOIN floods with BACKPRESSURE replies.
+
+Not ported yet, each raising ``NotImplementedError`` when set: serving
+(item 23) and the multi-job scheduler hooks (22g) (see ROADMAP Slice D).
 """
 
 from __future__ import annotations
@@ -136,7 +145,8 @@ MSG_TYPE_C2S_HEARTBEAT = 10
 #: with a full-precision resync of the mirror
 MSG_TYPE_C2S_JOIN = 11
 #: the server refused a JOIN's resync for now (a WAN-deferred JOIN: the
-#: silo's device is still offline in the trace); carries
+#: silo's device is still offline in the trace; or the JOIN admission
+#: bucket is empty); carries
 #: ``retry_after_s``, and the silo defers its next JOIN by that long (its
 #: heartbeats keep beating)
 MSG_TYPE_S2C_JOIN_BACKPRESSURE = 12
@@ -171,6 +181,42 @@ DOWNLINK_SEED_TAG = 1733
 #: package, and makes the shared module template safe for
 #: ``functional_call`` (which swaps the module's tensors during a call)
 _DEVICE_LOCK = threading.RLock()
+
+
+def _host_copy(tree):
+    """A nest of dicts and lists with tensor leaves as numpy copies on the
+    host (a snapshot outlives the tensors it was taken from)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_copy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True).numpy()
+    return tree
+
+
+def _like(template, value):
+    """``value`` (a restored nest of numpy arrays) in ``template``'s shape:
+    each tensor leaf on the template's device and dtype, dict keys in the
+    template's order. Names and shapes must agree."""
+    if isinstance(template, dict):
+        if set(value) != set(template):
+            raise ValueError(f"snapshot names {sorted(value)} != the "
+                             f"server's {sorted(template)}")
+        return {k: _like(template[k], value[k]) for k in template}
+    if isinstance(template, (list, tuple)):
+        if len(value) != len(template):
+            raise ValueError(f"snapshot list of {len(value)} != the "
+                             f"server's {len(template)}")
+        return type(template)(_like(t, v) for t, v in zip(template, value))
+    if isinstance(template, torch.Tensor):
+        arr = np.asarray(value)
+        if tuple(arr.shape) != tuple(template.shape):
+            raise ValueError(f"snapshot shape {arr.shape} != the server's "
+                             f"{tuple(template.shape)}")
+        return torch.from_numpy(np.array(arr, copy=True)).to(
+            device=template.device, dtype=template.dtype)
+    return value
 
 
 class FedAvgAggregator:
@@ -363,7 +409,16 @@ class FedAvgServerManager(ServerManager):
     full-precision resync of the mirror. Below quorum the deadline extends,
     at most ``max_deadline_extensions`` times a round (``None``: forever),
     each extension a ``deadline_extension`` anomaly in the flight log.
-    Without ``round_deadline_s`` the strict barrier is unchanged."""
+    Without ``round_deadline_s`` the strict barrier is unchanged.
+
+    The control plane (``fedml_tpu_torch/control``, all off by default):
+    ``server_ckpt`` (a ``ServerControlCheckpointer`` or its
+    ``AsyncCheckpointWriter``) takes a ledger line and a snapshot at every
+    round boundary and a snapshot at every deadline extension, and a
+    fresh server restores the newest snapshot before its first broadcast;
+    ``pace`` (a ``PaceSteerer``) sets each round's deadline and quorum
+    fraction; ``join_admission`` (a ``JoinAdmissionController``) answers
+    a JOIN past its token bucket with BACKPRESSURE."""
 
     def __init__(self, rank: int, size: int, com_manager,
                  aggregator: FedAvgAggregator, comm_round: int,
@@ -373,6 +428,7 @@ class FedAvgServerManager(ServerManager):
                  timer: Optional[RoundTimer] = None,
                  round_deadline_s: Optional[float] = None,
                  min_quorum_frac: float = 0.5,
+                 server_ckpt=None, pace=None, join_admission=None,
                  max_deadline_extensions: Optional[int] = 25,
                  wan=None):
         super().__init__(rank, size, com_manager)
@@ -425,6 +481,22 @@ class FedAvgServerManager(ServerManager):
         #: set (with a FINISH sweep) when the schedule cannot make
         #: progress; launch_federation raises it
         self.scheduling_error: Optional[Exception] = None
+        # -- the control plane (fedml_tpu_torch/control), None: off ---------
+        self._server_ckpt = server_ckpt
+        self._pace = pace
+        self._join_admission = join_admission
+        #: checkpoints, restores, steering adjustments, throttled JOINs,
+        #: skipped resync latencies; rolled into the timer as ``cp_*``
+        self.cp_counters: Dict[str, int] = defaultdict(int)
+        #: the global model's version for the snapshot serializer, bumped
+        #: at every close and restore (the serializer reuses its bytes
+        #: while it is unchanged)
+        self._model_version = 0
+        #: (model version, host copy): a mid-round snapshot re-captures
+        #: the unchanged global model from here instead of the device
+        self._gm_capture_cache = None
+        self._control_restored = False
+        self._restore_lock = threading.Lock()
         # -- downlink compression state (comm/policy.py) --------------------
         self._policy = resolve_compression(compression)
         self._bcast_seq = -1
@@ -472,7 +544,217 @@ class FedAvgServerManager(ServerManager):
         return (self.aggregator.aggregate_available() if partial
                 else self.aggregator.aggregate())
 
+    # -- the control plane: the round schedule's snapshot and restore -------
+    # (fedml_tpu_torch/control/checkpoint.py; the field manifest is
+    # control/manifest.py)
+    def _capture_extra(self, state: Dict) -> None:
+        """Subclass hook: add a flavor's round state (FedOpt's optimizer,
+        the quorum server's partial rounds) to the snapshot."""
+
+    def _restore_extra(self, state: Dict) -> None:
+        """Subclass hook: restore what :meth:`_capture_extra` added."""
+
+    def _capture_control_state(self) -> Dict:
+        """The whole round-schedule state as host data (numpy arrays,
+        dicts, lists, scalars): everything a restarted server needs to
+        resume mid-schedule. ``round_idx`` is also the sampling cursor:
+        cohorts and client seeds are pure functions of (seed, round)."""
+        agg = self.aggregator
+        with self._device_lock:  # device -> host copies
+            cache = self._gm_capture_cache
+            if cache is not None and cache[0] == self._model_version:
+                gm = cache[1]
+            else:
+                gm = _host_copy(self.global_model)
+                self._gm_capture_cache = (self._model_version, gm)
+            # the streaming fold holds only the reports not folded yet;
+            # the folded prefix rides in agg_fold
+            pending = {str(w): _host_copy(m)
+                       for w, m in agg.model_dict.items()}
+            fold_acc = (_host_copy(agg._fold_acc)
+                        if agg._fold_acc is not None else None)
+            mirror = (_host_copy(self._mirror)
+                      if self._mirror is not None else None)
+        state = {
+            "round_idx": int(self.round_idx),
+            "comm_round": int(self.comm_round),
+            "worker_num": int(self.worker_num),
+            "bcast_seq": int(self._bcast_seq),
+            "evict_on_deadline": bool(self._evict_on_deadline),
+            "global_model": gm,
+            "mirror": mirror,
+            "mirror_fp": self._mirror_fp,
+            "worker_base": {str(w): [int(s), str(fp)]
+                            for w, (s, fp) in self._worker_base.items()},
+            "live": sorted(int(w) for w in self.liveness.live_workers()),
+            "evictions": int(self.liveness.evictions),
+            "rejoins": int(self.liveness.rejoins),
+            "latency_window": self.liveness.report_latencies.values(),
+            "pending_models": pending,
+            "pending_weights": {str(w): float(v)
+                                for w, v in agg.sample_num_dict.items()},
+            # the fold in mid-round: its running sum, the contiguous
+            # prefix bound and the f32 weight total (exact through a
+            # float64), so a restored server closes on the unkilled bits
+            "agg_fold": {
+                "next": int(agg._fold_next),
+                "count": int(agg._fold_count),
+                "total": float(agg._fold_total),
+                "any_pos": bool(agg._any_pos),
+                "acc": fold_acc,
+            },
+            "uploaded_flags": [bool(f)
+                               for f in agg.flag_client_model_uploaded],
+            "live_history": self.live_history,
+            "ft_counters": {k: int(v) for k, v in self.ft_counters.items()},
+            "cp_counters": {k: int(v) for k, v in self.cp_counters.items()},
+            "resynced_round": {str(k): int(v)
+                               for k, v in self._resynced_round.items()},
+            "round_deadline_s": (float(self.round_deadline_s)
+                                 if self.round_deadline_s else None),
+            "min_quorum_frac": float(self.min_quorum_frac),
+            "extensions_this_round": int(self._extensions_this_round),
+            "round_cohort": ([int(i) for i in self._round_cohort]
+                             if self._round_cohort is not None else None),
+            "pace": (self._pace.state() if self._pace is not None
+                     else None),
+        }
+        self._capture_extra(state)
+        return state
+
+    def _restore_control_state(self, state: Dict) -> None:
+        if int(state["worker_num"]) != self.worker_num \
+                or int(state["comm_round"]) != self.comm_round:
+            raise ValueError(
+                f"server snapshot is for a {state['worker_num']}-silo/"
+                f"{state['comm_round']}-round schedule; this launch is "
+                f"{self.worker_num}-silo/{self.comm_round}-round: refusing "
+                "a silently wrong resume (point server_checkpoint_dir at a "
+                "fresh directory)")
+        template = self.global_model
+        with self._device_lock:  # host -> device copies
+            self.global_model = _like(template, state["global_model"])
+            self._mirror = (_like(template, state["mirror"])
+                            if state["mirror"] is not None else None)
+            pending = {int(w): _like(template, m)
+                       for w, m in state["pending_models"].items()}
+            fold = state["agg_fold"]
+            fold_acc = (_like(template, fold["acc"])
+                        if fold["acc"] is not None else None)
+        self.round_idx = int(state["round_idx"])
+        self._bcast_seq = int(state["bcast_seq"])
+        self._evict_on_deadline = bool(state["evict_on_deadline"])
+        self._mirror_fp = state["mirror_fp"]
+        # worker_base is captured for forensics but not restored: whether
+        # each silo still holds the base it reported before the kill is
+        # value-level staleness the fingerprint cannot see, so the first
+        # broadcast after a restore rebases at full precision
+        self._worker_base = {}
+        live = {int(w) for w in state["live"]}
+        for w in range(self.worker_num):
+            if w not in live:
+                self.liveness.evict(w)
+        self.liveness.evictions = int(state["evictions"])
+        self.liveness.rejoins = int(state["rejoins"])
+        self.liveness.report_latencies.load(state["latency_window"])
+        agg = self.aggregator
+        agg.model_dict = pending
+        agg.sample_num_dict = {int(w): float(v)
+                               for w, v in state["pending_weights"].items()}
+        agg.flag_client_model_uploaded = [
+            bool(f) for f in state["uploaded_flags"]]
+        agg._fold_next = int(fold["next"])
+        agg._fold_count = int(fold["count"])
+        agg._fold_total = np.float32(fold["total"])
+        agg._any_pos = bool(fold["any_pos"])
+        agg._fold_acc = fold_acc
+        agg.buffered_peak = len(agg.model_dict)
+        self.live_history = list(state["live_history"])
+        self.ft_counters.update(
+            {k: int(v) for k, v in state["ft_counters"].items()})
+        self.cp_counters.update(
+            {k: int(v) for k, v in state["cp_counters"].items()})
+        self._resynced_round = {
+            int(k): int(v) for k, v in state["resynced_round"].items()}
+        rd = state["round_deadline_s"]
+        self.round_deadline_s = float(rd) if rd is not None else None
+        self.min_quorum_frac = float(state["min_quorum_frac"])
+        self._extensions_this_round = int(state["extensions_this_round"])
+        rc = state["round_cohort"]
+        self._round_cohort = ([int(i) for i in rc]
+                              if rc is not None else None)
+        if self._pace is not None:
+            self._pace.load_state(state["pace"])
+        # the restored model is a new object: the next snapshot captures
+        # and serializes it afresh
+        self._gm_capture_cache = None
+        self._model_version += 1
+        self._restore_extra(state)
+
+    def _save_control_snapshot(self) -> None:
+        """Snapshot the control state (a no-op without a checkpointer). A
+        failed save warns loudly and the schedule goes on, unprotected.
+
+        With the async writer the round thread pays only the capture
+        (``cp_capture_ms``); serialization, fsync and publish
+        (``cp_flush_ms``, the last completed flush) run on the writer.
+        With ``checkpoint_sync`` both run here."""
+        if self._server_ckpt is None:
+            return
+        try:
+            t0 = time.perf_counter()
+            state = self._capture_control_state()
+            # the model's bytes change only at a close or a restore, the
+            # mirror's only when a broadcast advances it
+            versions = {"global_model": int(self._model_version),
+                        "mirror": int(self._bcast_seq)}
+            t1 = time.perf_counter()
+            self._server_ckpt.save(state, versions=versions)
+            t2 = time.perf_counter()
+            self.cp_counters["checkpoints"] += 1
+            tm = self.round_timer
+            tm.gauge("cp_capture_ms", (t1 - t0) * 1e3)
+            stats = getattr(self._server_ckpt, "stats", None)
+            tm.gauge("cp_flush_ms", stats()["last_flush_ms"]
+                     if stats is not None else (t2 - t1) * 1e3)
+        except Exception:
+            logging.warning(
+                "server control snapshot failed at round %d: the schedule "
+                "continues WITHOUT failover protection", self.round_idx,
+                exc_info=True)
+
+    def _maybe_restore_control_state(self) -> None:
+        """The one-shot failover restore, from the top of both :meth:`run`
+        (before the receive loop drains the JOINs and heartbeats of a
+        waiting fleet) and :meth:`send_init_msg`, whichever the launcher
+        reaches first. Not in ``__init__``: the subclasses install their
+        own round state after ``super().__init__``, and the restore must
+        win over every construction default."""
+        if self._server_ckpt is None:
+            return
+        with self._restore_lock:
+            if self._control_restored:
+                return
+            snap = self._server_ckpt.load_latest()
+            if snap is not None:
+                self._restore_control_state(snap)
+                self.cp_counters["restores"] += 1
+                logging.warning(
+                    "server control plane RESTORED from %s at round %d "
+                    "(live=%s, %d pending replies): resuming the schedule "
+                    "mid-flight", self._server_ckpt.directory,
+                    self.round_idx, sorted(self.liveness.live_workers()),
+                    self.aggregator.received_count())
+            # latched after success: a refused restore raises again on
+            # the other entry point's thread instead of going on from 0
+            self._control_restored = True
+
+    def run(self) -> None:
+        self._maybe_restore_control_state()
+        super().run()
+
     def send_init_msg(self) -> None:
+        self._maybe_restore_control_state()
         if self.round_idx >= self.comm_round:
             # resumed from the checkpoint of a finished run
             self._finish_federation()
@@ -554,13 +836,28 @@ class FedAvgServerManager(ServerManager):
                 logging.warning("FINISH to silo %d failed (%r): the peer "
                                 "is gone", worker, exc)
         self.finish()
+        # the close barrier: the async writer publishes its pending
+        # snapshot and the ledger is fsynced before the launcher (or the
+        # extension cap's error path) lets the process end
+        if self._server_ckpt is not None:
+            try:
+                self._server_ckpt.close()
+            except Exception:
+                logging.warning("checkpoint close barrier failed",
+                                exc_info=True)
+            # the run's fsyncs, the close's included
+            raw = getattr(self._server_ckpt, "inner", self._server_ckpt)
+            self.round_timer.count("cp_fsync_total", int(raw.fsync_count))
+            self.round_timer.count("cp_ledger_fsyncs",
+                                   int(raw.ledger_fsync_count))
 
     def _fail_schedule(self, reason: str) -> None:
-        """A terminal scheduling failure: FINISH every silo and keep the
-        error for the launcher to raise."""
+        """A terminal scheduling failure: snapshot the final state, FINISH
+        every silo and keep the error for the launcher to raise."""
         from fedml_tpu_torch.control import SchedulingStallError
         self.scheduling_error = SchedulingStallError(reason)
         logging.error("%s", self.scheduling_error)
+        self._save_control_snapshot()
         self._finish_federation()
 
     # -- downlink compression (comm/policy.py, comm/compression.py) ---------
@@ -679,9 +976,13 @@ class FedAvgServerManager(ServerManager):
         the silo piggybacked."""
         latency = (time.monotonic() - self._bcast_at
                    if self._bcast_at is not None else None)
-        if latency is not None \
-                and self._resynced_round.get(worker) != self.round_idx:
-            self.liveness.observe_report_latency(worker, latency)
+        if latency is not None:
+            if self._resynced_round.get(worker) == self.round_idx:
+                # kept out of the steering evidence: a flap burst's worth
+                # would inflate the steered deadline for a window's width
+                self.cp_counters["resync_latency_skips"] += 1
+            else:
+                self.liveness.observe_report_latency(worker, latency)
         if self.obs is None:
             return
         row = {"kind": "silo", "round": int(self.round_idx),
@@ -777,6 +1078,7 @@ class FedAvgServerManager(ServerManager):
         with self._device_lock, tm.phase("fold"):
             self.global_model = self._aggregate_round(partial=partial)
             synchronize(self.device)
+        self._model_version += 1
         tm.gauge("agg_fold_ms", (time.monotonic() - t0) * 1e3)
         tm.gauge("agg_buffered_peak", buffered_peak)
         if self.on_round_done is not None:
@@ -793,6 +1095,7 @@ class FedAvgServerManager(ServerManager):
             "partial": bool(partial),
             "evictions": int(self.liveness.evictions),
             "rejoins": int(self.liveness.rejoins),
+            "joins_throttled": int(self.cp_counters["joins_throttled"]),
             "deadline_s": (float(self.round_deadline_s)
                            if self.round_deadline_s else None)}
         if self._wan is not None:
@@ -825,13 +1128,36 @@ class FedAvgServerManager(ServerManager):
             batches = self.obs.recorder.pop_fsync_batches()
             if batches:
                 tm.count("obs_fsync_batches", batches)
+        deadline_used = self.round_deadline_s
         self.round_idx += 1
-        # the new round enters with a full extension budget
-        self._extensions_this_round = 0
         if self.checkpoint_mgr is not None:
             with self._device_lock, tm.phase("checkpoint"):
                 self.checkpoint_mgr.save(self.round_idx,
                                          self._checkpoint_state())
+        if self._pace is not None and self.round_deadline_s:
+            self._steer(len(reported), len(live) if self._evict_on_deadline
+                        else self.worker_num, deadline_used)
+        # the new round enters with a full extension budget, before the
+        # boundary snapshot: a restored server must not start the next
+        # round charged with this one's extensions
+        self._extensions_this_round = 0
+        if self._server_ckpt is not None:
+            # the durable boundary: the ledger line first, the snapshot
+            # second (a crash between them closes this round again after
+            # the restore, and readers keep the last row of a round)
+            self._server_ckpt.append_ledger({
+                "round": self.round_idx - 1,
+                "cohort": self._round_cohort,
+                "reported": reported,
+                "partial": bool(partial),
+                "deadline_s": deadline_used})
+            self._save_control_snapshot()
+            # snapshots the writer's newest-wins slot skipped since the
+            # last close
+            pop = getattr(self._server_ckpt, "pop_coalesced", None)
+            coalesced = pop() if pop is not None else 0
+            if coalesced:
+                tm.count("cp_writer_queue_coalesced", coalesced)
         if self.round_idx == self.comm_round:
             self._finish_federation()
             return
@@ -840,6 +1166,25 @@ class FedAvgServerManager(ServerManager):
             self.round_idx, self.client_num_in_total, self.worker_num)
         self._broadcast_model(MSG_TYPE_S2C_SYNC_MODEL, idxs)
         self._arm_deadline()
+
+    def _steer(self, reported: int, live: int, deadline_used) -> None:
+        """Pace steering at a round boundary: the next round's deadline and
+        quorum fraction from the report-latency window and the recent
+        participation (``control/pace.py``)."""
+        self._pace.observe_round(reported, max(1, live))
+        latencies = self.liveness.report_latencies
+        new_d = self._pace.next_deadline(latencies)
+        new_q = self._pace.next_quorum_frac()
+        if new_d != self.round_deadline_s or new_q != self.min_quorum_frac:
+            self.cp_counters["deadline_adjustments"] += 1
+            self.round_timer.gauge("cp_steered_deadline_s", new_d)
+            logging.info(
+                "pace steering: round %d deadline %.3fs -> %.3fs, quorum "
+                "frac %.3f -> %.3f (p90 report latency %s)",
+                self.round_idx, deadline_used or 0.0, new_d,
+                self.min_quorum_frac, new_q, latencies.quantile(0.9))
+        self.round_deadline_s = new_d
+        self.min_quorum_frac = new_q
 
     def _wan_admit_pending(self) -> None:
         """Re-admit, at a round boundary, the silos whose JOIN was deferred
@@ -893,6 +1238,14 @@ class FedAvgServerManager(ServerManager):
                         "availability oracle)", w + 1, self.round_idx)
             live = self.liveness.live_workers()
         need = max(1, math.ceil(self.min_quorum_frac * max(1, len(live))))
+        if self._pace is not None and len(live) > 1:
+            # steering's no-deadlock rule: ceil(0.9 * n) is n for every n
+            # up to 10, so the steered fraction alone would demand every
+            # live silo of a small fleet, and one hung silo (no send
+            # error, never evicted below quorum) would stall the schedule
+            # into the extension cap. The static flags keep their meaning
+            # (an explicit min_quorum_frac 1.0 waits for everyone).
+            need = min(need, len(live) - 1)
         if len(reported) < need:
             if self._note_deadline_extension():
                 self._fail_schedule(
@@ -901,7 +1254,7 @@ class FedAvgServerManager(ServerManager):
                     f"after {self._extensions_this_round - 1} deadline "
                     f"extensions (max_deadline_extensions="
                     f"{self._max_extensions}): the federation cannot make "
-                    "progress")
+                    "progress; final state checkpointed")
                 return
             if self.obs is not None:
                 # the round is not closing: record it and arm a one-shot
@@ -918,6 +1271,9 @@ class FedAvgServerManager(ServerManager):
                 self._extensions_this_round,
                 self._max_extensions
                 if self._max_extensions is not None else "inf")
+            # mid-round durability: the reports in hand survive a kill
+            # during a long extension stretch
+            self._save_control_snapshot()
             self._arm_deadline()
             return
         for w in sorted(live - reported):
@@ -963,7 +1319,7 @@ class FedAvgServerManager(ServerManager):
                 and self.aggregator.has_reported(worker):
             # live and already reported: it is waiting out the round
             return
-        if self._wan_defers_join(worker):
+        if self._wan_defers_join(worker) or self._join_throttled(worker):
             return
         self.liveness.admit(worker)
         self._wan_pending_joins.discard(worker)
@@ -974,6 +1330,11 @@ class FedAvgServerManager(ServerManager):
             return
         if self.round_idx >= self.comm_round:
             return  # the schedule is done
+        if self._bcast_at is None:
+            # this server has not broadcast yet (a restored one holds the
+            # mirror of the round before): its first broadcast reaches
+            # the silo, a resync now would send a stale model
+            return
         if self._resynced_round.get(worker) == self.round_idx:
             return  # resynced this round already; its reply is on the way
         self._resynced_round[worker] = self.round_idx
@@ -1031,16 +1392,33 @@ class FedAvgServerManager(ServerManager):
             self._wan_pending_joins.discard(worker)
             return False
         self.round_timer.count("wan_join_deferred")
+        self._backpressure(worker, float(self._wan.join_retry_s),
+                           "deferred (device offline in the WAN trace)")
+        return True
+
+    def _join_throttled(self, worker: int) -> bool:
+        """JOIN admission: a mass rejoin after a partition heals must not
+        stampede the full-precision resync path. A JOIN that finds the
+        token bucket empty gets BACKPRESSURE and the silo defers its next
+        attempt (its heartbeats keep beating); True when throttled."""
+        if self._join_admission is None \
+                or self._join_admission.try_acquire():
+            return False
+        self.cp_counters["joins_throttled"] += 1
+        self._backpressure(worker,
+                           float(self._join_admission.retry_after_s()),
+                           "throttled (admission token bucket empty)")
+        return True
+
+    def _backpressure(self, worker: int, retry_s: float, why: str) -> None:
         out = Message(MSG_TYPE_S2C_JOIN_BACKPRESSURE, self.rank, worker + 1)
-        out.add(MSG_ARG_KEY_RETRY_AFTER, float(self._wan.join_retry_s))
+        out.add(MSG_ARG_KEY_RETRY_AFTER, retry_s)
         try:
             self.send_message(out)
         except OSError as exc:
             logging.debug("backpressure reply to silo %d failed: %r",
                           worker + 1, exc)
-        logging.info("silo %d JOIN deferred (device offline in the WAN "
-                     "trace): backpressure sent", worker + 1)
-        return True
+        logging.info("silo %d JOIN %s: backpressure sent", worker + 1, why)
 
 
 class FedOptServerManager(FedAvgServerManager):
@@ -1081,6 +1459,17 @@ class FedOptServerManager(FedAvgServerManager):
         self.global_model = state["variables"]
         self.server_opt_state = state["server_opt"]
 
+    def _capture_extra(self, state) -> None:
+        with self._device_lock:
+            state["server_opt"] = _host_copy(self.server_opt_state)
+
+    def _restore_extra(self, state) -> None:
+        # the fresh optimizer state is the template: its structure,
+        # devices and dtypes (the step count stays int32)
+        with self._device_lock:
+            self.server_opt_state = _like(self.server_opt_state,
+                                          state["server_opt"])
+
     def _aggregate_round(self, partial: bool = False):
         avg = super()._aggregate_round(partial=partial)
         params = [self.global_model[n] for n in self._param_names]
@@ -1117,6 +1506,7 @@ class FedAvgClientManager(ClientManager):
                  train_cfg: TrainConfig, seed: int = 0,
                  compress: bool = False, compression=None,
                  state_dir: Optional[str] = None, resume: bool = False,
+                 state_sync: bool = False,
                  prefetch_depth: int = 2, device="cuda",
                  timer: Optional[RoundTimer] = None, obs=None,
                  heartbeat_s: float = 0.0, wan_agent=None):
@@ -1166,11 +1556,11 @@ class FedAvgClientManager(ClientManager):
         self._state_ckpt = None
         if state_dir and self._policy.uplink_topk:
             from fedml_tpu_torch.state.residuals import SiloResidualStore
-            # async write-back: the flush rides a writer thread off the
-            # reply's critical path; FINISH closes it (the durability
-            # barrier)
-            self._state_ckpt = SiloResidualStore(state_dir,
-                                                 async_writeback=True)
+            # async write-back (unless state_sync): the flush rides a
+            # writer thread off the reply's critical path; FINISH closes
+            # it (the durability barrier)
+            self._state_ckpt = SiloResidualStore(
+                state_dir, async_writeback=not state_sync)
         # the server's sampling is the deterministic shared stream, so this
         # silo can pack the client it will be handed next round while the
         # current round trains; keys are (round, client), so a miss packs
@@ -1481,10 +1871,6 @@ class FedAvgClientManager(ClientManager):
 #: options of the JAX launchers that the port does not run yet, with the
 #: ROADMAP item that ports each; any value other than the default raises
 _NOT_PORTED = {
-    "server_checkpoint_dir": "Slice D item 23 (control plane)",
-    "checkpoint_sync": "Slice D item 23 (control plane)",
-    "pace_steering": "Slice D item 23 (control plane)",
-    "join_rate_limit": "Slice D item 23 (control plane)",
     "serve_port": "Slice D item 23 (serving)",
     "serving": "Slice D item 23 (serving)",
     "comm_factory": "Slice D item 22g (the multi-job scheduler)",
@@ -1577,21 +1963,32 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
     clients; a prebuilt ``wan`` wins (see :func:`launch_federation`). A
     ``fault_plan`` then composes with it through ``compose_fault_plan``.
 
+    The control plane: ``server_checkpoint_dir`` snapshots the server's
+    round-schedule state at round boundaries and deadline extensions and
+    keeps the round/cohort ledger there (a killed and restarted server
+    resumes mid-schedule); the snapshots are written by a thread of their
+    own with group-committed ledger fsyncs, or inline with an fsync a
+    ledger line under ``checkpoint_sync`` (which also makes each silo's
+    residual store write synchronously). ``pace_steering`` derives each
+    round's deadline and quorum from the observed report latencies (the
+    static flags are its base and floor); ``join_rate_limit`` (JOINs a
+    second) token-buckets JOIN floods with BACKPRESSURE replies and is
+    the WAN world's shadow bucket rate. The ``cp_*`` counters land in
+    ``timer``.
+
     The signature is the JAX package's; the options the port does not run
-    yet raise ``NotImplementedError`` when set, the server's here and the
-    silos' and transport's in :func:`launch_federation`
-    (``serve_staleness_rounds`` only takes effect with one of those, so it
-    is accepted and unused). ``obs_dir`` gives every rank a flight log
-    under one ``job_id`` (see :func:`launch_federation`)."""
-    _refuse_not_ported(
-        server_checkpoint_dir=server_checkpoint_dir,
-        pace_steering=pace_steering, join_rate_limit=join_rate_limit)
+    yet raise ``NotImplementedError`` when set, in
+    :func:`launch_federation` (``serve_staleness_rounds`` only takes
+    effect with one of those, so it is accepted and unused). ``obs_dir``
+    gives every rank a flight log under one ``job_id`` (see
+    :func:`launch_federation`)."""
+    from fedml_tpu_torch.control import build_control_plane
     if wan is None:
-        # the shadow mass-JOIN bucket's rate (the JAX launcher passes
-        # join_rate_limit) waits for item 23: set mass_join_rate on a
-        # prebuilt world
+        # the shadow mass-JOIN bucket runs at the admission rate, so the
+        # population's JOIN wave is measured against the configured policy
         wan = build_wan_world(wan_trace, wan_profiles, wan_round_s,
-                              population=dataset.client_num)
+                              population=dataset.client_num,
+                              mass_join_rate=join_rate_limit)
     if wan is not None and fault_plan:
         fault_plan = compose_fault_plan(fault_plan)
     policy = resolve_compression(compression, compress=compress)
@@ -1599,15 +1996,19 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
     if checkpoint_dir:
         from fedml_tpu_torch.utils.checkpoint import CheckpointManager
         checkpoint_mgr = CheckpointManager(checkpoint_dir)
+    control = build_control_plane(
+        server_checkpoint_dir=server_checkpoint_dir,
+        pace_steering=pace_steering, join_rate_limit=join_rate_limit,
+        round_deadline_s=round_deadline_s, min_quorum_frac=min_quorum_frac,
+        max_deadline_extensions=max_deadline_extensions,
+        checkpoint_sync=checkpoint_sync)
 
     def server_factory(size, server_com, aggregator, global_model,
                        on_round_done):
         common = dict(on_round_done=on_round_done,
                       checkpoint_mgr=checkpoint_mgr, resume=resume,
                       compression=policy, round_deadline_s=round_deadline_s,
-                      min_quorum_frac=min_quorum_frac,
-                      max_deadline_extensions=max_deadline_extensions,
-                      wan=wan)
+                      min_quorum_frac=min_quorum_frac, wan=wan, **control)
         if server_optimizer:
             return FedOptServerManager(
                 0, size, server_com, aggregator, comm_round,
@@ -1619,6 +2020,12 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
                                    comm_round, dataset.client_num,
                                    global_model, **common)
 
+    if job_id is None and (checkpoint_dir or server_checkpoint_dir):
+        # keyed on the run's durable namespace, so a run that persists
+        # through server_checkpoint_dir alone also rejoins its own flight
+        # timeline when it resumes after a crash
+        job_id = default_job_id(
+            "fed", stable_key=checkpoint_dir or server_checkpoint_dir)
     model, history, _ = launch_federation(
         dataset, module, task, worker_num, train_cfg, server_factory,
         backend=backend, addresses=addresses, wire_codec=wire_codec,
@@ -1723,18 +2130,18 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     ``conn_errors``, ``faults_injected``) and the server's protocol
     counters (evictions, rejoins, partial rounds, stale replies, corrupt
     frames, JOIN resyncs, heartbeats, deadline extensions) are summed into
-    the timer as ``ft_*``. ``wan`` (a :class:`~fedml_tpu_torch.wan
-    .WanWorld`, which takes the dataset's client count as its population
-    when it has none) gives every silo its agent; the server factory
-    hands it to the server. The world's remaining counters and every
-    agent's (``wan_offline_drops``, ``wan_delay_injected_ms``) land in the
-    timer after the run. ``obs_dir``
-    builds one observability bundle a rank (the server's with the
-    slow-round profiler and the perf accountant) under one ``job_id``,
-    derived once for the launch when unset; every recorder is closed on
-    the way out."""
+    the timer as ``ft_*``, its control-plane counters as ``cp_*``.
+    ``state_sync`` makes each silo's residual store write inline.
+    ``wan`` (a :class:`~fedml_tpu_torch.wan.WanWorld`, which takes the
+    dataset's client count as its population when it has none) gives
+    every silo its agent; the server factory hands it to the server.
+    The world's remaining counters and every agent's
+    (``wan_offline_drops``, ``wan_delay_injected_ms``) land in the timer
+    after the run. ``obs_dir`` builds one observability bundle a rank
+    (the server's with the slow-round profiler and the perf accountant)
+    under one ``job_id``, derived once for the launch when unset; every
+    recorder is closed on the way out."""
     _refuse_not_ported(
-        checkpoint_sync=state_sync,
         comm_factory=comm_factory, device_gate=device_gate,
         serve_port=serve_port, serving=serving)
     if wan is not None and wan.population is None:
@@ -1821,7 +2228,8 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
                 train_cfg, seed=seed, compression=policy,
                 state_dir=(os.path.join(client_state_dir, f"silo_{rank}")
                            if client_state_dir else None),
-                resume=resume, prefetch_depth=prefetch_depth, device=dev,
+                resume=resume, state_sync=state_sync,
+                prefetch_depth=prefetch_depth, device=dev,
                 timer=timer, obs=observe(com, rank, "silo"),
                 heartbeat_s=heartbeat_s,
                 wan_agent=wan.agent(rank) if wan is not None else None))
@@ -1879,6 +2287,13 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     for key in ("partial_rounds", "stale_replies", "corrupt_frames",
                 "join_resyncs", "heartbeats", "deadline_extensions"):
         timer.count(f"ft_{key}", int(server.ft_counters.get(key, 0)))
+    # the control plane's, counted at zero too, as the ft_* family
+    cpc = getattr(server, "cp_counters", {})
+    for key in ("checkpoints", "restores", "deadline_adjustments",
+                "joins_throttled", "resync_latency_skips"):
+        timer.count(f"cp_{key}", int(cpc.get(key, 0)))
+    if getattr(server, "_pace", None) is not None and server.round_deadline_s:
+        timer.gauge("cp_steered_deadline_s", float(server.round_deadline_s))
     if wan is not None:
         # what the round closes did not drain, and every agent's totals
         for k, v in wan.drain_counters().items():

@@ -19,12 +19,19 @@ blocked in ``accept()`` wakes at once instead of at its next 0.5 s poll;
 and a peer that closes its connection between frames (every silo at
 FINISH) ends that connection's reader quietly, where the JAX module logs
 it and counts a ``conn_errors``. A close inside a frame is still counted.
+A stopped endpoint also shuts its inbound connections down, as a process
+death would, where the JAX module's readers take one more frame each
+into the dead inbox; and a sender reconnects before it writes on a
+cached connection its peer has closed, where a write into it would be
+lost without an error. So a server stopped in process (the failover
+harness's simulated crash) loses no frame addressed to its successor.
 """
 
 from __future__ import annotations
 
 import logging
 import queue
+import select
 import socket
 import struct
 import threading
@@ -111,6 +118,17 @@ class _SendItem:
         self.receiver = receiver
 
 
+def _closed_by_peer(sock: socket.socket) -> bool:
+    """True when the peer has closed this outbound connection. Nothing
+    is ever sent back on it, so a readable socket is at EOF (or in error):
+    the first write into it would succeed locally and be lost."""
+    try:
+        readable, _, _ = select.select([sock], [], [], 0)
+        return bool(readable) and sock.recv(1, socket.MSG_PEEK) == b""
+    except OSError:
+        return True
+
+
 class _Peer:
     """A cached outbound connection with a bounded send queue drained by a
     dedicated writer thread: sends to different peers overlap, and a
@@ -137,6 +155,9 @@ class _Peer:
         """One attempt: (re)connect if needed, write the frame. A failed or
         partial write desyncs the length-prefixed stream, so the socket is
         dropped before the error propagates."""
+        if self.sock is not None and _closed_by_peer(self.sock):
+            self.sock.close()
+            self.sock = None
         if self.sock is None:
             self.sock = socket.create_connection(
                 self.address, timeout=_CONNECT_TIMEOUT_S)
@@ -277,6 +298,8 @@ class TcpCommManager(BaseCommunicationManager):
         self._inbox: "queue.Queue" = queue.Queue()
         self._peers: Dict[int, _Peer] = {}
         self._peers_lock = threading.Lock()
+        #: the accepted inbound connections, shut down at stop
+        self._conns: set = set()
         self._running = False
         self._accept_thread: Optional[threading.Thread] = None
 
@@ -314,6 +337,11 @@ class TcpCommManager(BaseCommunicationManager):
         return {"enqueued": len(msgs), "max_queue_depth": max_depth}
 
     def _serve_conn(self, conn: socket.socket) -> None:
+        with self._peers_lock:
+            if not self._running:
+                conn.close()
+                return
+            self._conns.add(conn)
         try:
             while self._running:
                 frame = recv_frame(conn)
@@ -331,6 +359,8 @@ class TcpCommManager(BaseCommunicationManager):
                                 "(%r); the sender will retry", self.rank,
                                 exc)
         finally:
+            with self._peers_lock:
+                self._conns.discard(conn)
             conn.close()
 
     def _accept_loop(self) -> None:
@@ -374,6 +404,14 @@ class TcpCommManager(BaseCommunicationManager):
             for peer in self._peers.values():
                 peer.close()
             self._peers.clear()
+            # inbound too, as a process death closes them: a reader must
+            # not take a frame meant for this endpoint's successor
+            for conn in self._conns:
+                try:
+                    conn.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass  # already closed by the peer
+            self._conns.clear()
         if (self._accept_thread is not None
                 and self._accept_thread is not threading.current_thread()):
             self._accept_thread.join(timeout=2 * _ACCEPT_POLL_S)

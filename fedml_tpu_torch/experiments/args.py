@@ -125,6 +125,41 @@ def add_federated_args(parser: argparse.ArgumentParser):
                              "'seed=7;drop:p=0.1;delay:p=0.2,delay_ms=50', "
                              "inline JSON, or a .json path. Wraps every "
                              "endpoint; empty/unset = no injection")
+    # -- the elastic control plane (fedml_tpu_torch/control) -----------------
+    parser.add_argument("--server_checkpoint_dir", type=str, default=None,
+                        help="durable server control-plane snapshots and "
+                             "the round/cohort ledger: the whole round-"
+                             "schedule state (round index, live set, "
+                             "compression mirror, pending replies, "
+                             "steering windows) is written atomically at "
+                             "round boundaries and deadline extensions, so "
+                             "a killed and restarted server resumes mid-"
+                             "schedule. Written by a thread of their own "
+                             "(newest-wins, group-committed ledger "
+                             "fsyncs) unless --checkpoint_sync. Unset = no "
+                             "snapshots")
+    parser.add_argument("--checkpoint_sync", action="store_true",
+                        help="write the control-plane snapshots inline at "
+                             "every boundary, one ledger fsync a line (the "
+                             "restore point is always the newest "
+                             "boundary, at the round thread's cost); also "
+                             "makes the silos' residual stores write "
+                             "inline. Off = the async writer: a restore "
+                             "may land a few rounds back and replay "
+                             "forward to the same ledger")
+    parser.add_argument("--pace_steering", action="store_true",
+                        help="adaptive pace steering: each round's "
+                             "deadline (p90 of the observed report "
+                             "latencies x1.5, clamped to [base/4, "
+                             "base*4]) and quorum from the straggler "
+                             "distribution; --round_deadline_s is the "
+                             "base and --min_quorum_frac the floor. Off = "
+                             "the static schedule")
+    parser.add_argument("--join_rate_limit", type=float, default=0.0,
+                        help="JOIN admission: a token-bucket rate (JOINs a "
+                             "second) on the server's full-precision "
+                             "resync path; a throttled silo gets "
+                             "BACKPRESSURE with retry_after_s. 0 = off")
     parser.add_argument("--max_deadline_extensions", type=int, default=25,
                         help="cap on the below-quorum deadline extensions "
                              "of a round; past it the run fails loudly "

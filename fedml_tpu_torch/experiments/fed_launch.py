@@ -20,15 +20,17 @@ darts|gdas``, ``--arch_unrolled``, ``--arch_lr``,
 ``--checkpoint_dir`` / ``--resume`` reach fedavg and fedavg_cross_silo
 (``--backend inproc|tcp|grpc``), as do the fault-tolerance flags
 (``--round_deadline_s``, ``--min_quorum_frac``,
-``--max_deadline_extensions``, ``--heartbeat_s``, ``--fault_plan``).
+``--max_deadline_extensions``, ``--heartbeat_s``, ``--fault_plan``) and the
+control plane's (``--server_checkpoint_dir``, ``--checkpoint_sync``,
+``--pace_steering``, ``--join_rate_limit``).
 fedavg_cross_silo also runs the WAN world (``--wan_trace``,
 ``--wan_profiles``, ``--wan_round_s``); other algorithms warn and ignore
 those flags.
 fedavg_async runs the straggler-tolerant servers over the in-process
 router: ``--async_mode quorum`` (``--quorum``, ``--round_deadline_s``,
-10 s when unset) or ``fedasync`` (``--async_alpha``, ``--async_poly_a``,
-``--max_updates``). The control plane's flags (ROADMAP item 23) are not
-ported yet.
+10 s when unset, and the control plane's flags) or ``fedasync``
+(``--async_alpha``, ``--async_poly_a``, ``--max_updates``; it warns and
+ignores the snapshot and steering flags, as the JAX launcher does).
 """
 
 from __future__ import annotations
@@ -186,6 +188,13 @@ def _warn_unwired(args) -> None:
     if args.checkpoint_dir:
         logging.warning("--checkpoint_dir is only wired for --algo fedavg "
                         "and fedavg_cross_silo; ignoring for %r", args.algo)
+    if args.algo != "fedavg_async" and (
+            args.server_checkpoint_dir or args.checkpoint_sync
+            or args.pace_steering or args.join_rate_limit):
+        logging.warning("the control plane's flags are only wired for the "
+                        "cross-silo servers (fedavg's socket backends, "
+                        "fedavg_cross_silo, fedavg_async); ignoring for %r",
+                        args.algo)
     if args.obs_dir or args.job_id:
         # the JAX launcher threads the flight recorder through these two
         # paths alone
@@ -364,6 +373,10 @@ def _run_async(args, ds, model, task, sink, tcfg):
         max_updates=args.max_updates, train_cfg=tcfg, seed=args.seed,
         compression=args.compression, heartbeat_s=args.heartbeat_s,
         fault_plan=args.fault_plan,
+        server_checkpoint_dir=args.server_checkpoint_dir,
+        checkpoint_sync=args.checkpoint_sync,
+        pace_steering=args.pace_steering,
+        join_rate_limit=args.join_rate_limit,
         max_deadline_extensions=resolve_max_extensions(args),
         device=args.device)
     for rec in history:

@@ -19,12 +19,13 @@ per-round perf records (MFU against the card's BF16 peak); read them with
 ``python -m fedml_tpu_torch.obs merge|report|tail <obs_dir>``.
 The cross-silo backends take the fault-tolerance flags
 ``--round_deadline_s``, ``--min_quorum_frac``, ``--max_deadline_extensions``,
-``--heartbeat_s`` and ``--fault_plan``. The WAN world's flags
-(``--wan_trace``, ``--wan_profiles``, ``--wan_round_s``) are parsed and,
-as in the JAX CLI, not passed on here: ``fed_launch --algo
-fedavg_cross_silo`` runs them. ``--backend spmd`` is not ported
-yet and raises ``NotImplementedError``; the control plane's flags
-(ROADMAP item 23) are not ported yet.
+``--heartbeat_s`` and ``--fault_plan``, and the control plane's
+``--server_checkpoint_dir``, ``--checkpoint_sync``, ``--pace_steering`` and
+``--join_rate_limit`` (the simulation backend ignores them, as the JAX CLI
+does). The WAN world's flags (``--wan_trace``, ``--wan_profiles``,
+``--wan_round_s``) are parsed and, as in the JAX CLI, not passed on here:
+``fed_launch --algo fedavg_cross_silo`` runs them. ``--backend spmd`` is
+not ported yet and raises ``NotImplementedError``.
 
 Usage: python -m fedml_tpu_torch.experiments.main_fedavg \
     --dataset femnist_gen --client_num_in_total 200 --client_num_per_round 10 \
@@ -132,6 +133,10 @@ def run_cross_silo(args, ds, model, task, sink, wan: bool = False):
         round_deadline_s=args.round_deadline_s,
         min_quorum_frac=args.min_quorum_frac, heartbeat_s=args.heartbeat_s,
         fault_plan=args.fault_plan,
+        server_checkpoint_dir=args.server_checkpoint_dir,
+        checkpoint_sync=args.checkpoint_sync,
+        pace_steering=args.pace_steering,
+        join_rate_limit=args.join_rate_limit,
         max_deadline_extensions=resolve_max_extensions(args),
         obs_dir=args.obs_dir, job_id=args.job_id, timer=timer,
         device=args.device, **wan_flags)

@@ -321,8 +321,6 @@ METRICS: Dict[str, Dict[str, str]] = {
 #: brings each (the row stays; nothing is dropped)
 PENDING: Dict[str, str] = {
     "send_queue_depth": "Slice D item 24 (comm/fanout_smoke.py)",
-    **{n: "Slice D item 23 (control plane)" for n in METRICS
-       if n.startswith("cp_")},
     **{n: "Slice D item 22g (the multi-job scheduler)" for n in METRICS
        if n.startswith("sched_")},
     **{n: "Slice D item 23 (serving)" for n in METRICS

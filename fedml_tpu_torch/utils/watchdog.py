@@ -73,6 +73,16 @@ class SlidingQuantileTracker:
                 return None
             return interpolated_quantile(list(self._buf), q)
 
+    def values(self) -> List[float]:
+        with self._lock:
+            return list(self._buf)
+
+    def load(self, values: Iterable[float]) -> None:
+        """Replace the window (a control-plane restore)."""
+        with self._lock:
+            self._buf.clear()
+            self._buf.extend(float(v) for v in values)
+
 
 class SiloLivenessTable:
     """Thread-safe per-silo liveness: last-seen times and the live set.

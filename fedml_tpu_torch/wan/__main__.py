@@ -17,11 +17,10 @@ availability curve and its per-round silo online matrix: the tool that
 designs fixtures (the world is a pure function, so what it prints is what
 a run meets).
 
-Both run on the card unless ``--device cpu``. The ledger rows
-(``round``, ``cohort``, ``reported``, ``partial``, ``deadline_s``) come
-from the server's round records, the JAX ledger's fields; the JAX
-package's ledger comes from its control-plane checkpointer (ROADMAP item
-23), which the port does not have yet.
+Both run on the card unless ``--device cpu``. Each leg's ledger is the
+control plane's (``ServerControlCheckpointer.read_ledger``, one row a
+closed round: ``round``, ``cohort``, ``reported``, ``partial``,
+``deadline_s``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,10 +46,6 @@ SMOKE_TRACE = ("seed=20;period_s=960;phase0_s=480;peak=0.98;trough=0.45;"
 SMOKE_PROFILES = ("seed=5;compute_median_s=0.12;compute_sigma=0.5;"
                   "delay_cap_s=1.0")
 SMOKE_DEADLINE_S = 2.0
-
-#: the JAX ledger row's fields, as the server's round record carries them
-LEDGER_FIELDS = ("round", "cohort", "reported", "partial", "deadline_s")
-
 
 def build_fixture(population: int = SMOKE_POPULATION):
     """A blob population larger than the silo fleet, so the cohort draw
@@ -91,20 +86,32 @@ def run_churn_leg(ckpt_dir: Optional[str] = None, *,
                   join_timeout_s: float = 300.0,
                   init_variables=None,
                   device="cuda") -> Dict:
-    """One federation under the world model; returns the history, the
-    round ledger, the counters and gauges, and the world. The ledger rows
-    are the server's round records cut to the JAX ledger's fields, one a
-    closed round; with ``ckpt_dir`` they are also written to
-    ``ckpt_dir/ledger.jsonl``. ``init_variables`` (a state dict) replaces
-    the seeded initial model; ``pace_steering`` (ROADMAP item 23) raises
-    ``NotImplementedError``."""
+    """One federation under the world model, checkpointing its control
+    plane into ``ckpt_dir`` (a temporary directory when None); returns the
+    history, the round ledger read back from the checkpointer, the
+    counters and gauges, and the world. ``init_variables`` (a state dict)
+    replaces the seeded initial model."""
+    import tempfile
+
     from fedml_tpu_torch.algorithms.fedavg_cross_silo import (
         run_fedavg_cross_silo)
+    from fedml_tpu_torch.control import ServerControlCheckpointer
+    from fedml_tpu_torch.control.failover_harness import make_addresses
     from fedml_tpu_torch.utils.tracing import RoundTimer
 
+    if ckpt_dir is None:
+        with tempfile.TemporaryDirectory(prefix="fedml_wan_leg_") as tmp:
+            return run_churn_leg(
+                tmp, rounds=rounds, workers=workers, world=world,
+                backend=backend, port_base=port_base,
+                pace_steering=pace_steering, deadline_s=deadline_s,
+                min_quorum_frac=min_quorum_frac, obs_dir=obs_dir,
+                compression=compression, fault_plan=fault_plan,
+                join_timeout_s=join_timeout_s,
+                init_variables=init_variables, device=device)
     ds, module, tcfg = build_fixture()
     timer = RoundTimer()
-    addresses = ({r: ("127.0.0.1", port_base + r) for r in range(workers + 1)}
+    addresses = (make_addresses(port_base, workers + 1)
                  if backend.upper() == "TCP" else None)
     t0 = time.perf_counter()
     round_walls: Dict[int, float] = {}
@@ -117,18 +124,13 @@ def run_churn_leg(ckpt_dir: Optional[str] = None, *,
         ds, module, worker_num=workers, comm_round=rounds,
         train_cfg=tcfg, backend=backend, addresses=addresses,
         round_deadline_s=deadline_s, min_quorum_frac=min_quorum_frac,
-        heartbeat_s=0.2, pace_steering=pace_steering, timer=timer, wan=world,
+        heartbeat_s=0.2, server_checkpoint_dir=ckpt_dir,
+        pace_steering=pace_steering, timer=timer, wan=world,
         obs_dir=obs_dir, compression=compression, fault_plan=fault_plan,
         round_record_hook=record, join_timeout_s=join_timeout_s,
         device=device, init_variables=init_variables)
     wall = time.perf_counter() - t0
-    ledger = [{k: rec[k] for k in LEDGER_FIELDS}
-              for rec in timer.round_records()]
-    if ckpt_dir:
-        os.makedirs(ckpt_dir, exist_ok=True)
-        with open(os.path.join(ckpt_dir, "ledger.jsonl"), "w") as f:
-            f.writelines(json.dumps(row, sort_keys=True) + "\n"
-                         for row in ledger)
+    ledger = ServerControlCheckpointer(ckpt_dir).read_ledger()
     return {
         "history": history,
         "ledger": ledger,

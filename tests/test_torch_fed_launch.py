@@ -119,15 +119,19 @@ def test_slice_f_refuses_a_wrong_dataset_before_the_sink(algo, argv, match,
 
 @pytest.mark.parametrize("algo", ["fedavg_async"])
 def test_unported_algo_names_its_item(algo, tmp_path):
-    """The last refused algorithm runs now. What it still refuses, its
-    control plane (ROADMAP item 23), is no flag of the port's launcher:
-    the parser refuses it before anything is built."""
-    for flag in (["--server_checkpoint_dir", "ck"], ["--checkpoint_sync"],
-                 ["--pace_steering"], ["--join_rate_limit", "2"]):
-        with pytest.raises(SystemExit):
-            fed_launch.main(["--algo", algo, *BASE, *flag,
-                             "--run_dir", str(tmp_path / "run")])
-    assert not (tmp_path / "run").exists()
+    """The last refused algorithm runs, and so, since ROADMAP item 23,
+    does its control plane: the launcher takes the four flags and the
+    quorum server checkpoints into ``--server_checkpoint_dir``."""
+    from fedml_tpu_torch.control import ServerControlCheckpointer
+    ck = str(tmp_path / "ck")
+    for i, flag in enumerate((["--server_checkpoint_dir", ck],
+                              ["--checkpoint_sync"], ["--pace_steering"],
+                              ["--join_rate_limit", "2"])):
+        final = fed_launch.main(["--algo", algo, *BASE, *flag,
+                                 "--async_mode", "quorum", "--quorum", "1",
+                                 "--run_dir", str(tmp_path / f"run{i}")])
+        assert np.isfinite(final["test_loss"])
+    assert ServerControlCheckpointer(ck).latest_round() == 3  # BASE's rounds
 
 
 @pytest.mark.parametrize("argv, err, match", [

@@ -341,11 +341,39 @@ def test_fed_launch_runs_fedavg_async(mode, extra, tmp_path):
 @pytest.mark.parametrize("name, value", [
     ("server_checkpoint_dir", "ck"), ("checkpoint_sync", True),
     ("pace_steering", True), ("join_rate_limit", 2.0)])
-def test_control_plane_options_raise_naming_item_23(name, value):
+def test_control_plane_options_raise_naming_item_23(name, value, tmp_path,
+                                                    caplog):
+    """Item 23's control plane is ported: the quorum server runs each
+    option (the snapshots land in ``server_checkpoint_dir``), and FedAsync,
+    which has no round schedule, warns and leaves the schedule options
+    unapplied as the JAX package does; nothing raises any more."""
+    from fedml_tpu_torch.control import ServerControlCheckpointer
+    from fedml_tpu_torch.utils.tracing import RoundTimer
     ds = make_blob_federated(**BLOB)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        pasync.run_fedavg_async(ds, _port_model(ds), device="cpu",
-                                **{name: value})
+    if name == "server_checkpoint_dir":
+        value = str(tmp_path / value)
+    timer = RoundTimer()
+    _, history, server = pasync.run_fedavg_async(
+        ds, _port_model(ds), device="cpu", worker_num=2, comm_round=2,
+        quorum=2, train_cfg=TrainConfig(**TRAIN), timer=timer,
+        join_timeout_s=60, **{name: value})
+    assert server.round_idx == 2 and len(history) == 2
+    assert timer.counters["cp_checkpoints"] == (
+        2 if name == "server_checkpoint_dir" else 0)
+    if name == "server_checkpoint_dir":
+        snap = ServerControlCheckpointer(value).load_latest()
+        assert snap["round_idx"] == 2 and snap["quorum"] == 2
+    if name == "pace_steering":
+        assert server._pace is not None
+    if name == "join_rate_limit":
+        assert server._join_admission.rate_per_s == 2.0
+    _, _, fedasync = pasync.run_fedavg_async(
+        ds, _port_model(ds), mode="fedasync", device="cpu", worker_num=1,
+        max_updates=2, train_cfg=TrainConfig(**TRAIN), join_timeout_s=60,
+        **{name: value})
+    assert fedasync.version == 2 and fedasync._server_ckpt is None
+    if name in ("server_checkpoint_dir", "pace_steering"):
+        assert "FedAsync has no round schedule" in caplog.text
 
 
 def test_an_unknown_mode_is_refused():

@@ -1,5 +1,6 @@
-"""fedml_tpu_torch stands alone: it imports no jax, flax, optax or
-fedml_tpu module, and its CUDA default never falls back to the CPU.
+"""fedml_tpu_torch stands alone: it imports no jax, flax, optax, msgpack
+(which the card's machine does not have) or fedml_tpu module, and its
+CUDA default never falls back to the CPU.
 
 tests/conftest.py imports jax into this process, so the runtime check runs
 the port in a subprocess. The child runs torch on one thread, as the
@@ -24,7 +25,8 @@ from fedml_tpu_torch.experiments import main_fedavg
 from fedml_tpu_torch.models import create_model
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = re.compile(r"^(jax|jaxlib|flax|optax)(\.|$)|^fedml_tpu(\.|$)")
+FORBIDDEN = re.compile(
+    r"^(jax|jaxlib|flax|optax|msgpack)(\.|$)|^fedml_tpu(\.|$)")
 #: the JAX package under any module name, but not the port's own
 REFERENCE = re.compile(r"\bfedml_tpu(?!_torch)\b")
 
@@ -128,6 +130,14 @@ _, deadline_hist = run_fedavg_cross_silo(
     comm_round=2, train_cfg=TrainConfig(batch_size=16, lr=0.1),
     round_deadline_s=0.3, heartbeat_s=0.1, device="cpu",
     fault_plan="drop:direction=send,sender=2,msg_type=4,after=1,max_count=1")
+# the control plane: a server killed before its round-2 broadcast and a
+# fresh one that restores its snapshot and finishes the schedule
+from fedml_tpu_torch.control.failover_harness import run_simulated_failover
+_, ledger, restored = run_simulated_failover(
+    tempfile.mkdtemp(dir=sys.argv[1]), rounds=3, crash_at_round=2,
+    device="cpu")
+assert restored.cp_counters["restores"] == 1, restored.cp_counters
+assert [r["round"] for r in ledger] == [0, 1, 2], ledger
 hist = hist + resumed + routed + deadline_hist
 # the rest of the FedAvg family through fed_launch
 from fedml_tpu_torch.experiments import fed_launch
@@ -230,7 +240,9 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "obs.perf", "obs.anomaly", "obs.registry", "obs.tail",
               "obs.report", "obs.trend", "obs.__main__", "utils.flops",
               "utils.fsio", "utils.watchdog", "utils.tracing",
-              "comm.faults", "algorithms.fedavg_async", "control"):
+              "comm.faults", "algorithms.fedavg_async", "control",
+              "control.checkpoint", "control.pace", "control.manifest",
+              "control.failover_harness"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)
            or REFERENCE.search(m)]
@@ -238,9 +250,12 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|fedml_tpu)(?:\.|\s|$)"
-    r"|import_module\(\s*['\"](jax|flax|optax|fedml_tpu)(?:\.|['\"])"
-    r"|__import__\(\s*['\"](jax|flax|optax|fedml_tpu)(?:\.|['\"])",
+    r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|msgpack|fedml_tpu)"
+    r"(?:\.|\s|$)"
+    r"|import_module\(\s*['\"](jax|flax|optax|msgpack|fedml_tpu)"
+    r"(?:\.|['\"])"
+    r"|__import__\(\s*['\"](jax|flax|optax|msgpack|fedml_tpu)"
+    r"(?:\.|['\"])",
     re.MULTILINE)
 
 
@@ -261,6 +276,8 @@ def test_static_scan_catches_a_planted_import():
     planted = "import torch\nfrom fedml_tpu.core import sampling\n"
     assert _IMPORT.search(planted)
     assert _IMPORT.search("    import jax.numpy as jnp\n")
+    assert _IMPORT.search("import msgpack\n")
+    assert FORBIDDEN.match("msgpack") and FORBIDDEN.match("msgpack.fallback")
     assert not _IMPORT.search("from fedml_tpu_torch.core import sampling\n")
 
 

@@ -496,8 +496,8 @@ def _plant(obs, d, schedule=SCHEDULE):
 
 
 def _ledger(path, schedule=SCHEDULE):
-    """A control-plane ledger as the JAX package writes one (one JSON line
-    a round); the port's control plane is ROADMAP item 23."""
+    """A control-plane ledger as both packages write one (one JSON line a
+    round)."""
     with open(path, "w") as f:
         for rnd, cohort, reported, partial in schedule:
             f.write(json.dumps({"round": rnd, "cohort": cohort,
@@ -894,6 +894,7 @@ def test_registry_keeps_every_jax_row_and_names_what_the_port_emits():
     emitted = {m.group(1) for f in (ROOT / "fedml_tpu_torch").rglob("*.py")
                for m in _EMIT.finditer(f.read_text())}
     emitted.discard("ft_")  # the f"ft_{key}" roll-up: retries etc.
+    emitted.discard("cp_")  # the f"cp_{key}" roll-up: checkpoints etc.
     assert emitted, "the scan found no metric"
     assert emitted <= pregistry.metric_names(), sorted(
         emitted - pregistry.metric_names())
