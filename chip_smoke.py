@@ -271,6 +271,29 @@
    fold) and one ledger line a close, a quantize launch a reply and a
    dequantize launch a decode. It prints ``cp_capture_ms``,
    ``cp_flush_ms``, ``cp_fsync_total``, the steered deadlines and the
+   phase's time;
+33. multi-job tenancy (``fedml_tpu_torch/sched``): ``launch_jobs`` over one
+   in-process ``SharedFabric`` and one ``RoundInterleaver`` (cuDNN
+   deterministic) with two jobs: ``cnn``, the full-width 62-class FEMNIST
+   CNN on femnist_gen over 4 silos, 3 rounds, batch 20, lr 0.1,
+   ``delta_int8``, share 2; and ``lr``, the LR on blob over 3 silos, 4
+   deadline rounds (2.0 s, heartbeats 0.3 s), ``topk_ef_int8:0.1``, share
+   1. Each runs alone through the scheduler, then both together. The
+   counts are set to 0 just before each leg and read just after: each
+   job's ledger, history and final model in the shared leg are its solo
+   leg's bit for bit, the shared leg's int8 launches are the sum of the
+   solo legs' (the CNN's as its schedule implies), both jobs held the
+   device for a time > 0, and ``obs report`` on the shared obs dir gives
+   one summary a job. It prints the fairness ratio, each tenant's
+   ``sched_device_time`` and ``sched_gate_wait`` and the phase's time;
+34. tenancy failover (``run_tenancy_failover``): the ``cnn`` job survives
+   while the ``lr`` job is the victim, its silos on the card in this
+   process behind the shared interleaver, its server a ``python -m
+   fedml_tpu_torch.sched serve --device cuda`` subprocess, SIGKILLed after
+   round 2 and started again. The survivor is bit for bit its solo leg,
+   the victim restores (``cp_restores >= 1``) and finishes its 4 rounds;
+   the in-process int8 launches are counted over the phase. It prints each
+   server incarnation's time from spawn to its first closed round and the
    phase's time.
 
 Any failure raises, and the script exits non-zero without printing a
@@ -4585,6 +4608,188 @@ def phase_control_plane():
     return out
 
 
+#: phases 33-34's tenants (JobSpec fields): the CNN main path's model and
+#: training at 4 silos, and the JAX suite's deadline tenant (``jobb``)
+SCHED_CNN = dict(id="cnn", dataset="femnist_gen", workers=4, rounds=3,
+                 batch_size=20, lr=0.1, epochs=1, compression="delta_int8",
+                 share=2.0)
+SCHED_LR = dict(id="lr", dataset="blob", workers=3, rounds=4, seed=7, dim=6,
+                class_num=2, n_samples=150, batch_size=10, lr=0.1,
+                compression="topk_ef_int8:0.1", round_deadline_s=2.0,
+                heartbeat_s=0.3, share=1.0)
+
+
+def _sched_specs():
+    from fedml_tpu_torch.sched import JobSpec
+    return JobSpec(**SCHED_CNN), JobSpec(**SCHED_LR)
+
+
+def _zero_int8_launches() -> None:
+    from fedml_tpu_torch.ops import quantize as tq
+    tq.quantize_int8.launches = 0
+    tq.dequantize_int8.launches = 0
+
+
+def phase_tenancy(device="cuda"):
+    """Phase 33: two tenants through ``launch_jobs`` on the card, each
+    alone and then together, cuDNN deterministic (see the module
+    docstring)."""
+    import tempfile
+
+    import torch
+    from fedml_tpu_torch.obs.report import summarize
+    from fedml_tpu_torch.sched import launch_jobs
+    from fedml_tpu_torch.sched.chaos import solo_parity
+
+    t0 = time.perf_counter()
+    cnn, lr = _sched_specs()
+    legs = {}
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sched_") as root:
+            for name, specs in (("solo_cnn", [cnn]), ("solo_lr", [lr]),
+                                ("shared", [cnn, lr])):
+                _zero_int8_launches()
+                t = time.perf_counter()
+                res = launch_jobs(specs, os.path.join(root, name),
+                                  obs=name == "shared", device=device,
+                                  join_timeout_s=300)
+                legs[name] = {"res": res,
+                              "wall_s": time.perf_counter() - t,
+                              "launches": _int8_launches()}
+            report = summarize([os.path.join(root, "shared", "obs")])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    shared = legs["shared"]["res"]
+    for spec in (cnn, lr):
+        ten = shared["jobs"][spec.id]
+        solo = legs[f"solo_{spec.id}"]["res"]["jobs"][spec.id]
+        err, ledger_ok, model_ok = solo_parity(solo, ten)
+        if err or not (ledger_ok and model_ok) \
+                or ten["history"] != solo["history"]:
+            raise AssertionError(
+                f"tenancy: job {spec.id} differs from its solo leg (error "
+                f"{err}, ledger {ledger_ok}, model {model_ok})")
+        rows = ten["ledger"]
+        if [r["round"] for r in rows] != list(range(spec.rounds)) or any(
+                r.get("partial") or len(r["reported"]) != spec.workers
+                for r in rows):
+            raise AssertionError(f"tenancy: job {spec.id}'s ledger {rows}")
+        if not shared["device_time_s"].get(spec.id, 0.0) > 0.0:
+            raise AssertionError(f"tenancy: job {spec.id} held the device "
+                                 f"for {shared['device_time_s']}")
+        if not report["jobs"].get(spec.id, {}).get("rounds"):
+            raise AssertionError(
+                f"tenancy: obs report {sorted(report['jobs'])}")
+    solo_sum = {k: legs["solo_cnn"]["launches"][k]
+                + legs["solo_lr"]["launches"][k] for k in ("quant", "dequant")}
+    _check_launches("tenancy shared leg", legs["shared"]["launches"],
+                    solo_sum)
+    _check_launches("tenancy cnn solo leg", legs["solo_cnn"]["launches"],
+                    _silo_launches(cnn.rounds, cnn.workers, cnn.compression))
+    if not all(legs["solo_lr"]["launches"].values()):
+        raise AssertionError(f"tenancy: the lr job launched "
+                             f"{legs['solo_lr']['launches']}")
+    per_job = {
+        j: {"sched_device_time_s": r["phases"].get("sched_device_time"),
+            "sched_gate_wait_s": r["phases"].get("sched_gate_wait"),
+            "sched_device_acquires":
+                r["counters"].get("sched_device_acquires"),
+            "comm_bytes_up": r["counters"].get("comm_bytes_up"),
+            "comm_bytes_down": r["counters"].get("comm_bytes_down")}
+        for j, r in shared["jobs"].items()}
+    out = {"launches": {n: leg["launches"] for n, leg in legs.items()},
+           "wall_s": {n: leg["wall_s"] for n, leg in legs.items()},
+           "device_time_s": shared["device_time_s"],
+           "steady_device_time_s": shared["steady_device_time_s"],
+           "fairness_ratio": shared["fairness_ratio"],
+           "fairness_ratio_raw": shared["fairness_ratio_raw"],
+           "per_job": per_job}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"tenancy ({_smi()}): cnn (femnist_gen CNN, 4 silos, 3 rounds, "
+        f"delta_int8, share 2) and lr (blob LR, 3 silos, 4 deadline rounds, "
+        f"topk_ef_int8:0.1, share 1) over one fabric and one gate: each "
+        f"bit for bit its solo leg; int8 launches solo "
+        f"{legs['solo_cnn']['launches']} + {legs['solo_lr']['launches']} = "
+        f"shared {legs['shared']['launches']}; legs "
+        + ", ".join(f"{n} {leg['wall_s']:.2f} s" for n, leg in legs.items())
+        + f"; fairness_ratio {out['fairness_ratio']} (raw "
+        f"{out['fairness_ratio_raw']}); per tenant "
+        + "; ".join(f"{j}: sched_device_time {v['sched_device_time_s']:.4f} "
+                    f"s, sched_gate_wait {v['sched_gate_wait_s']:.4f} s, "
+                    f"{v['sched_device_acquires']} acquires"
+                    for j, v in per_job.items()))
+    log(f"phase 33 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_tenancy_failover(device="cuda"):
+    """Phase 34: the tenancy failover harness on the card, the ``lr`` job's
+    server SIGKILLed and restarted while the ``cnn`` job survives (see the
+    module docstring)."""
+    import tempfile
+
+    import torch
+    from fedml_tpu_torch.sched.chaos import run_tenancy_failover
+
+    t0 = time.perf_counter()
+    cnn, lr = _sched_specs()
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as root:
+            _zero_int8_launches()
+            res = run_tenancy_failover(root, specs=[cnn, lr], victim=lr.id,
+                                       device=device, timeout_s=240,
+                                       join_timeout_s=240)
+            launches = _int8_launches()
+            victim = res["jobs"][lr.id]
+            if not res["ok"]:
+                with open(victim["server_log"]) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"tenancy failover: {res['jobs']}; the "
+                                     f"victim server's log ends {tail}")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    surv = res["jobs"][cnn.id]
+    if not (surv["ledger_identical_to_solo"]
+            and surv["model_identical_to_solo"]
+            and surv["ledger_rounds"] == cnn.rounds):
+        raise AssertionError(f"tenancy failover: survivor {surv}")
+    if victim["cp_restores"] < 1 or victim["rounds_completed"] != lr.rounds \
+            or victim["killed_at_round"] != 2 \
+            or len(victim["incarnations"]) != 2:
+        raise AssertionError(f"tenancy failover: victim {victim}")
+    # the survivor's solo and shared legs, and the victim's silos (their
+    # replies and decodes; its server decodes in the subprocess)
+    own = _silo_launches(cnn.rounds, cnn.workers, cnn.compression)
+    if not all(launches[k] > 2 * own[k] for k in own):
+        raise AssertionError(f"tenancy failover: int8 launches {launches}, "
+                             f"the survivor's two legs alone {own} each")
+    spawn = [inc["spawn_to_first_round_s"] for inc in victim["incarnations"]]
+    out = {"launches": launches, "spawn_to_first_round_s": spawn,
+           "cp_restores": victim["cp_restores"],
+           "device_time_s": res["device_time_s"],
+           "fairness_ratio": res["fairness_ratio"]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"tenancy failover ({_smi()}): the lr job's server (python -m "
+        f"fedml_tpu_torch.sched serve --device {device}) SIGKILLed after "
+        f"round 2, restarted and restored ({victim['cp_restores']} restore), "
+        f"its 4 rounds complete; the cnn survivor bit for bit its solo leg; "
+        f"spawn to first closed round {spawn[0]:.2f} s, then {spawn[1]:.2f} s "
+        f"after the respawn; in-process int8 launches {launches}; "
+        f"fairness_ratio {res['fairness_ratio']}")
+    log(f"phase 34 took {out['phase_s']:.1f} s")
+    return out
+
+
 def _build_each_federation_once() -> None:
     """Each generated federation is built once in a run and handed to every
     later entry-point call with the same arguments: the builders are pure
@@ -4648,6 +4853,8 @@ def main() -> None:
     record["fault_tolerance"] = phase_fault_tolerance()
     record["wan"] = phase_wan_world()
     record["control_plane"] = phase_control_plane()
+    record["tenancy"] = phase_tenancy()
+    record["tenancy_failover"] = phase_tenancy_failover()
     k = record["kernel"]
     zoo = record["zoo_models"]
     kernels = [{
@@ -4744,6 +4951,10 @@ def main() -> None:
             "launches_wan": record["wan"]["launches"][kern],
             "launches_cp": {leg: record["control_plane"][leg]["launches"][
                 kern] for leg in ("unkilled", "killed")},
+            "launches_sched": {leg: record["tenancy"]["launches"][leg][kern]
+                               for leg in ("solo_cnn", "solo_lr", "shared")},
+            "launches_sched_failover":
+                record["tenancy_failover"]["launches"][kern],
             "max_abs_err": record["quant"]["max_abs_err"][kern],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -418,7 +418,12 @@ class FedAvgServerManager(ServerManager):
     fresh server restores the newest snapshot before its first broadcast;
     ``pace`` (a ``PaceSteerer``) sets each round's deadline and quorum
     fraction; ``join_admission`` (a ``JoinAdmissionController``) answers
-    a JOIN past its token bucket with BACKPRESSURE."""
+    a JOIN past its token bucket with BACKPRESSURE.
+
+    ``device_gate`` replaces the process-wide device lock around every
+    device section: the multi-job scheduler passes the job's
+    ``JobDeviceGate`` (``sched/interleave.py``), so tenants take turns on
+    the one card by their shares."""
 
     def __init__(self, rank: int, size: int, com_manager,
                  aggregator: FedAvgAggregator, comm_round: int,
@@ -430,9 +435,10 @@ class FedAvgServerManager(ServerManager):
                  min_quorum_frac: float = 0.5,
                  server_ckpt=None, pace=None, join_admission=None,
                  max_deadline_extensions: Optional[int] = 25,
-                 wan=None):
+                 device_gate=None, wan=None):
         super().__init__(rank, size, com_manager)
-        self._device_lock = _DEVICE_LOCK
+        self._device_lock = (device_gate if device_gate is not None
+                             else _DEVICE_LOCK)
         self.aggregator = aggregator
         self.comm_round = comm_round
         self.client_num_in_total = client_num_in_total
@@ -939,10 +945,12 @@ class FedAvgServerManager(ServerManager):
             msgs.append(msg)
         t0 = time.monotonic()
         self._bcast_at = t0
-        self.com_manager.broadcast(msgs, on_error=(
+        stats = self.com_manager.broadcast(msgs, on_error=(
             self._on_broadcast_send_error if self._evict_on_deadline
             else None))
         tm.gauge("bcast_fanout_ms", (time.monotonic() - t0) * 1e3)
+        if stats is not None:  # a duck-typed endpoint may return none
+            tm.gauge("send_queue_depth", stats["max_queue_depth"])
 
     def _on_broadcast_send_error(self, worker_rank: int, exc) -> None:
         """A peer's broadcast failed after its transport retries: evict it
@@ -1444,7 +1452,9 @@ class FedOptServerManager(FedAvgServerManager):
         self._server_tx = get_server_optimizer(server_optimizer, server_lr,
                                                **opt_kw)
         self._param_names = list(param_names)
-        with _DEVICE_LOCK:
+        # the job's gate under the scheduler, as every server section
+        gate = kw.get("device_gate")
+        with gate if gate is not None else _DEVICE_LOCK:
             self.server_opt_state = self._server_tx.init(
                 [global_model[n] for n in self._param_names])
         # super() last: a resume overwrites the fresh optimizer state
@@ -1509,7 +1519,8 @@ class FedAvgClientManager(ClientManager):
                  state_sync: bool = False,
                  prefetch_depth: int = 2, device="cuda",
                  timer: Optional[RoundTimer] = None, obs=None,
-                 heartbeat_s: float = 0.0, wan_agent=None):
+                 heartbeat_s: float = 0.0, wan_agent=None,
+                 device_gate=None):
         super().__init__(rank, size, com_manager)
         self.dataset = dataset
         #: the WAN world's agent for this silo, or None: off
@@ -1533,7 +1544,10 @@ class FedAvgClientManager(ClientManager):
         self._hb_stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
         self.device = resolve_device(device)
-        self._device_lock = _DEVICE_LOCK
+        #: the process-wide device lock, or the job's fair-share gate
+        #: under the multi-job scheduler
+        self._device_lock = (device_gate if device_gate is not None
+                             else _DEVICE_LOCK)
         validate_accum_steps(train_cfg, dataset.train_data_local_num_dict)
         self._local_train = make_local_train(module, task, train_cfg)
         self._train_cfg = train_cfg
@@ -1873,8 +1887,6 @@ class FedAvgClientManager(ClientManager):
 _NOT_PORTED = {
     "serve_port": "Slice D item 23 (serving)",
     "serving": "Slice D item 23 (serving)",
-    "comm_factory": "Slice D item 22g (the multi-job scheduler)",
-    "device_gate": "Slice D item 22g (the multi-job scheduler)",
 }
 
 
@@ -2008,7 +2020,8 @@ def run_fedavg_cross_silo(dataset: FederatedDataset, module,
         common = dict(on_round_done=on_round_done,
                       checkpoint_mgr=checkpoint_mgr, resume=resume,
                       compression=policy, round_deadline_s=round_deadline_s,
-                      min_quorum_frac=min_quorum_frac, wan=wan, **control)
+                      min_quorum_frac=min_quorum_frac,
+                      device_gate=device_gate, wan=wan, **control)
         if server_optimizer:
             return FedOptServerManager(
                 0, size, server_com, aggregator, comm_round,
@@ -2140,10 +2153,32 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     after the run. ``obs_dir`` builds one observability bundle a rank
     (the server's with the slow-round profiler and the perf accountant)
     under one ``job_id``, derived once for the launch when unset; every
-    recorder is closed on the way out."""
-    _refuse_not_ported(
-        comm_factory=comm_factory, device_gate=device_gate,
-        serve_port=serve_port, serving=serving)
+    recorder is closed on the way out.
+
+    The multi-job scheduler's hooks (``fedml_tpu_torch/sched``):
+    ``comm_factory(rank)`` supplies each rank's endpoint in place of
+    ``create_comm_manager`` (the job's virtual channels over one shared
+    fabric), and ``device_gate`` replaces the process-wide device lock
+    around model init, every actor's device sections and the eval (the
+    job's fair-share gate). Both None is the single-tenant launch. The
+    port has no warm-up to gate: nothing compiles before the first
+    round."""
+    _refuse_not_ported(serve_port=serve_port, serving=serving)
+    if comm_factory is not None:
+        # the factory's endpoints are built elsewhere (the scheduler's
+        # shared fabric): the knobs only create_comm_manager reads would
+        # be dropped without a word, so refuse
+        dropped = [name for name, unset in (
+            ("fault_plan", fault_plan is None),
+            ("token", token is None),
+            ("addresses", addresses is None),
+            ("wire_codec", wire_codec)) if not unset]
+        if dropped:
+            raise ValueError(
+                f"comm_factory supplies prebuilt endpoints: {dropped} "
+                "would be silently ignored — apply transport knobs where "
+                "the endpoints are built (e.g. SharedFabric(wire_codec=, "
+                "token=, fault_plan=))")
     if wan is not None and wan.population is None:
         wan.population = dataset.client_num
     if not wire_codec:
@@ -2154,15 +2189,20 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
     dev = resolve_device(device)
     policy = resolve_compression(compression, compress=compress)
     size = worker_num + 1
-    router = InProcRouter() if backend.upper() in ("INPROC", "MPI") else None
+    gate = device_gate if device_gate is not None else _DEVICE_LOCK
+    router = (InProcRouter() if comm_factory is None
+              and backend.upper() in ("INPROC", "MPI") else None)
     timer = timer if timer is not None else RoundTimer()
     plan = parse_fault_plan(fault_plan)
     coms, clients = [], []
 
     def endpoint(rank):
-        com = create_comm_manager(backend, rank, size, router=router,
-                                  addresses=addresses, token=token,
-                                  fault_plan=plan)
+        if comm_factory is not None:
+            com = comm_factory(rank)
+        else:
+            com = create_comm_manager(backend, rank, size, router=router,
+                                      addresses=addresses, token=token,
+                                      fault_plan=plan)
         coms.append(com)
         return com
 
@@ -2170,19 +2210,20 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
         for com in coms:
             com.stop_receive_message()
 
-    global_model = _initial_model(module, seed, dev, init_variables)
-    module.to(dev)
+    xt, yt = dataset.test_data_global
+    with gate:  # model init and the uploads are device work
+        global_model = _initial_model(module, seed, dev, init_variables)
+        module.to(dev)
+        test = (torch.from_numpy(np.ascontiguousarray(xt)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(yt)).to(dev),
+                torch.ones(len(xt), device=dev))
     history: List[Dict] = []
     eval_fn = make_eval(module, task)
-    xt, yt = dataset.test_data_global
-    test = (torch.from_numpy(np.ascontiguousarray(xt)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(yt)).to(dev),
-            torch.ones(len(xt), device=dev))
 
     def on_round_done(round_idx, model):
         if not len(xt):
             return
-        with _DEVICE_LOCK:
+        with gate:  # only the eval is device work
             stats = eval_fn(model, *test)
             count = max(1.0, float(stats["count"]))
             acc = float(stats["correct_sum"]) / count
@@ -2232,7 +2273,8 @@ def launch_federation(dataset: FederatedDataset, module, task: str,
                 prefetch_depth=prefetch_depth, device=dev,
                 timer=timer, obs=observe(com, rank, "silo"),
                 heartbeat_s=heartbeat_s,
-                wan_agent=wan.agent(rank) if wan is not None else None))
+                wan_agent=wan.agent(rank) if wan is not None else None,
+                device_gate=device_gate))
         threads = [threading.Thread(target=_actor(c.run, errors, stop_all),
                                     daemon=True, name=f"silo{c.rank}")
                    for c in clients]

@@ -7,9 +7,11 @@ grpc_backend.py) rely on: a sending backend stamps each message with a
 per-stream ``[epoch, seq]`` (:meth:`_stamp_seq`), and :meth:`_notify`
 drops a frame whose stamp was already delivered, so a retry of a frame
 that did land is never delivered twice. Fault-tolerance event counts land
-in :attr:`counters`. The JAX package's per-job byte and counter slices
-(its multi-job scheduler's shared fabrics) are not ported: the job tag
-only keys the streams, and stays ``None`` on every frame.
+in :attr:`counters`. On a shared endpoint of the multi-job scheduler
+(``sched/router.py``) every frame carries its job's tag: the streams are
+keyed per ``(peer, job)``, and the wire bytes and event counters keep a
+slice per job (:meth:`job_bytes`, :meth:`job_counters`), credited where the
+frame and so its tag is in hand.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from fedml_tpu_torch.comm.message import Message
 WIRE_SEQ_KEY = "__wire_seq__"
 
 #: tenancy tag: reliable-delivery streams are keyed per ``(peer, job)``.
-#: Absent on every frame until the multi-job scheduler is ported, so the
-#: stream key is the peer alone.
+#: Written by a scheduler channel (``sched/router.py``); a single-tenant
+#: frame carries none, and its stream key is ``(peer, None)``.
 WIRE_JOB_KEY = "__wire_job__"
 
 #: dedup window per stream: seqs older than (highest seen - window) are
@@ -76,19 +78,54 @@ class BaseCommunicationManager(abc.ABC):
         #: (sender, job) -> superseded incarnation epochs: late frames from
         #: a previous life stay dropped instead of reopening a window
         self._old_epochs: Dict[Tuple, Set[int]] = defaultdict(set)
+        #: (job, "tx" / "rx") -> bytes: each tenant's slice of the wire
+        #: totals on a shared endpoint, what its channel reports as its own
+        #: bytes. Not purged with the job's streams: the launcher credits
+        #: the final wire bytes after FINISH stopped the channel.
+        self._job_bytes: Dict[Tuple, int] = defaultdict(int)
+        #: (job, counter name) -> count: each tenant's slice of the event
+        #: counters (send retries, dedup drops), with the same lifetime
+        self._job_counters: Dict[Tuple, int] = defaultdict(int)
 
-    def _count_sent(self, n: int) -> None:
+    def _count_sent(self, n: int, job=None) -> None:
         with self._bytes_lock:
             self.bytes_sent += int(n)
+            if job is not None:
+                self._job_bytes[(job, "tx")] += int(n)
 
-    def _count_received(self, n: int) -> None:
+    def _count_received(self, n: int, job=None) -> None:
         with self._bytes_lock:
             self.bytes_received += int(n)
+            if job is not None:
+                self._job_bytes[(job, "rx")] += int(n)
 
-    def bump(self, name: str, n: int = 1) -> None:
-        """Increment a fault-tolerance event counter."""
+    def _credit_job_received(self, n: int, job) -> None:
+        """The per-job slice only, for backends that count a raw inbound
+        frame on the socket thread, before its decode reveals the tag."""
+        if job is None:
+            return
+        with self._bytes_lock:
+            self._job_bytes[(job, "rx")] += int(n)
+
+    def job_bytes(self, job) -> Tuple[int, int]:
+        """(sent, received) bytes carried for ``job`` on this endpoint."""
+        with self._bytes_lock:
+            return (self._job_bytes.get((job, "tx"), 0),
+                    self._job_bytes.get((job, "rx"), 0))
+
+    def bump(self, name: str, n: int = 1, job=None) -> None:
+        """Increment an event counter; ``job`` (when the event's frame is
+        in hand) also credits the tenant's slice."""
         with self._bytes_lock:
             self.counters[name] += int(n)
+            if job is not None:
+                self._job_counters[(job, name)] += int(n)
+
+    def job_counters(self, job) -> Dict[str, int]:
+        """``job``'s slice of the event counters."""
+        with self._bytes_lock:
+            return {name: v for (j, name), v in self._job_counters.items()
+                    if j == job}
 
     # -- reliable-delivery bookkeeping --------------------------------------
     def _stamp_seq(self, msg: Message) -> None:
@@ -133,6 +170,24 @@ class BaseCommunicationManager(abc.ABC):
             self._seen[stream] = (epoch, seen, high)
         return True
 
+    def purge_streams(self, job) -> None:
+        """Drop the stream state whose job tag is ``job`` (a finished
+        tenant on a shared endpoint): a relaunched job opens new streams
+        under a new channel epoch, so these windows are never read again.
+        Each purged incarnation's epoch joins ``_old_epochs`` (ints only)
+        instead of being forgotten: a late retried frame of the dead
+        incarnation stays dropped, where a forgotten epoch would make
+        ``_accept`` take the relaunch's live epoch for the superseded one
+        and wedge the new stream."""
+        with self._seq_lock:
+            for k in [k for k in self._send_seq if k[1] == job]:
+                del self._send_seq[k]
+            for k in [k for k in self._seen if k[1] == job]:
+                epoch = self._seen[k][0]
+                if epoch is not None:
+                    self._old_epochs[k].add(epoch)
+                del self._seen[k]
+
     @abc.abstractmethod
     def send_message(self, msg: Message) -> None:
         ...
@@ -164,7 +219,7 @@ class BaseCommunicationManager(abc.ABC):
 
     def _notify(self, msg: Message) -> None:
         if not self._accept(msg):
-            self.bump("dedup_drops")
+            self.bump("dedup_drops", job=msg.msg_params.get(WIRE_JOB_KEY))
             return
         for obs in list(self._observers):
             obs.receive_message(msg.get_type(), msg)

@@ -249,6 +249,9 @@ class FaultyCommManager:
         #: the timer and stop_receive_message claims an entry first sends it
         self._pending: Dict[int, tuple] = {}
         self._pending_ids = 0
+        #: (job, counter name) -> count: the wrapper's own per-tenant
+        #: slice (see ``BaseCommunicationManager._job_counters``)
+        self._job_counters: Dict[tuple, int] = defaultdict(int)
         inner.add_observer(_InnerTap(self))
 
     # -- byte accounting: the inner backend owns the wire ------------------
@@ -260,9 +263,25 @@ class FaultyCommManager:
     def bytes_received(self) -> int:
         return self.inner.bytes_received
 
-    def bump(self, name: str, n: int = 1) -> None:
+    def job_bytes(self, job):
+        return self.inner.job_bytes(job)
+
+    def job_counters(self, job) -> Dict[str, int]:
+        out = dict(self.inner.job_counters(job))
+        with self._rng_lock:
+            for (j, name), v in self._job_counters.items():
+                if j == job:
+                    out[name] = out.get(name, 0) + int(v)
+        return out
+
+    def purge_streams(self, job) -> None:
+        self.inner.purge_streams(job)
+
+    def bump(self, name: str, n: int = 1, job=None) -> None:
         with self._rng_lock:
             self.counters[name] += int(n)
+            if job is not None:
+                self._job_counters[(job, name)] += int(n)
 
     def all_counters(self) -> Dict[str, int]:
         """The wrapper's fault counts merged with the inner backend's

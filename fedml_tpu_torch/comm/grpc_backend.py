@@ -29,7 +29,7 @@ import queue
 import threading
 from typing import Dict, Iterator, Optional, Tuple
 
-from fedml_tpu_torch.comm.base import BaseCommunicationManager
+from fedml_tpu_torch.comm.base import WIRE_JOB_KEY, BaseCommunicationManager
 from fedml_tpu_torch.comm.message import Message
 from fedml_tpu_torch.comm.reliable import RetryPolicy, retry_call
 
@@ -201,7 +201,11 @@ class GrpcCommManager(GrpcEndpoint):
             handle, request_deserializer=None, response_serializer=None)
 
     def _decode(self, item) -> Message:
-        return Message.from_bytes(item)
+        msg = Message.from_bytes(item)
+        # the raw total was counted on the servicer thread; the job's
+        # slice needs the decoded tag
+        self._credit_job_received(len(item), msg.msg_params.get(WIRE_JOB_KEY))
+        return msg
 
     def send_message(self, msg: Message) -> None:
         # stamp BEFORE encoding: every stream attempt ships the identical
@@ -226,5 +230,6 @@ class GrpcCommManager(GrpcEndpoint):
             attempt, self.retry,
             describe=f"grpc sendMessage to rank {dest} ({host}:{port})",
             is_transient=_is_transient_rpc,
-            on_retry=lambda a, exc: self.bump("retries"))
-        self._count_sent(n)
+            on_retry=lambda a, exc: self.bump(
+                "retries", job=msg.msg_params.get(WIRE_JOB_KEY)))
+        self._count_sent(n, msg.msg_params.get(WIRE_JOB_KEY))

@@ -15,7 +15,7 @@ import queue
 import threading
 from typing import Dict
 
-from fedml_tpu_torch.comm.base import BaseCommunicationManager
+from fedml_tpu_torch.comm.base import WIRE_JOB_KEY, BaseCommunicationManager
 from fedml_tpu_torch.comm.message import Message
 
 _STOP = object()
@@ -50,7 +50,7 @@ class InProcCommManager(BaseCommunicationManager):
         # receive side's seq dedup must shed the copies here too
         self._stamp_seq(msg)
         frame = msg.to_bytes()
-        self._count_sent(len(frame))
+        self._count_sent(len(frame), msg.msg_params.get(WIRE_JOB_KEY))
         self.router.mailbox(msg.get_receiver_id()).put(frame)
 
     def handle_receive_message(self) -> None:
@@ -59,8 +59,9 @@ class InProcCommManager(BaseCommunicationManager):
             item = self._inbox.get()
             if item is _STOP:
                 break
-            self._count_received(len(item))
-            self._notify(Message.from_bytes(item))
+            msg = Message.from_bytes(item)
+            self._count_received(len(item), msg.msg_params.get(WIRE_JOB_KEY))
+            self._notify(msg)
 
     def stop_receive_message(self) -> None:
         self._running = False

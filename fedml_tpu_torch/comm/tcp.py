@@ -37,7 +37,7 @@ import struct
 import threading
 from typing import Dict, Optional, Tuple
 
-from fedml_tpu_torch.comm.base import BaseCommunicationManager
+from fedml_tpu_torch.comm.base import WIRE_JOB_KEY, BaseCommunicationManager
 from fedml_tpu_torch.comm.message import Message
 from fedml_tpu_torch.comm.reliable import (RetryPolicy, TransportError,
                                            retry_call)
@@ -107,11 +107,15 @@ class _SendItem:
     """One queued frame. Synchronous senders wait on ``done`` and re-raise
     ``error``; broadcast senders pass ``on_error`` instead and never wait."""
 
-    __slots__ = ("frame", "nbytes", "done", "error", "on_error", "receiver")
+    __slots__ = ("frame", "nbytes", "job", "done", "error", "on_error",
+                 "receiver")
 
-    def __init__(self, frame, wait: bool, on_error=None, receiver=None):
+    def __init__(self, frame, job, wait: bool, on_error=None,
+                 receiver=None):
         self.frame = frame
         self.nbytes = _nbytes(frame)
+        #: the frame's job tag: its bytes and retries credit that tenant
+        self.job = job
         self.done = threading.Event() if wait else None
         self.error: Optional[BaseException] = None
         self.on_error = on_error
@@ -134,7 +138,8 @@ class _Peer:
     dedicated writer thread: sends to different peers overlap, and a
     broadcast returns after enqueue. Every send goes through the queue
     (synchronous senders block on the item's ``done``), so frames to one
-    peer stay FIFO."""
+    peer stay FIFO. ``bump(name, n=1, job=None)`` and ``on_sent(nbytes,
+    job=None)`` get each frame's job tag, for the tenant's slices."""
 
     def __init__(self, address: Tuple[str, int], retry: RetryPolicy,
                  bump, on_sent, queue_depth: int = _SEND_QUEUE_DEPTH):
@@ -170,17 +175,18 @@ class _Peer:
                 self.sock = None
             raise
 
-    def send(self, frame) -> None:
+    def send(self, frame, job=None) -> None:
         """Retried under the peer's policy; raises ``TransportError`` once
         the budget is spent. The retried frame carries the same wire seq,
         so a duplicate from a send that failed after delivery is shed by
-        the receiver."""
+        the receiver. ``job`` credits the retries to the tenant's slice."""
         with self.lock:
             retry_call(
                 lambda: self._send_once(frame), self.retry,
                 describe=f"tcp send to {self.address[0]}:{self.address[1]}",
                 is_transient=lambda exc: isinstance(exc, OSError),
-                on_retry=lambda attempt, exc: self._bump("retries"))
+                on_retry=lambda attempt, exc: self._bump("retries",
+                                                         job=job))
 
     # -- send queue ---------------------------------------------------------
     def _fail(self, item: _SendItem, exc: BaseException) -> None:
@@ -196,11 +202,11 @@ class _Peer:
 
     def _process(self, item: _SendItem) -> None:
         try:
-            self.send(item.frame)
+            self.send(item.frame, job=item.job)
         except OSError as exc:
             self._fail(item, exc)
         else:
-            self._on_sent(item.nbytes)
+            self._on_sent(item.nbytes, job=item.job)
             if item.done is not None:
                 item.done.set()
 
@@ -224,25 +230,25 @@ class _Peer:
             self._process(item)
         self._shed()
 
-    def enqueue(self, frame) -> None:
+    def enqueue(self, frame, job=None) -> None:
         """Synchronous send through the queue: FIFO with any in-flight
         broadcast frames to this peer; waits out the write and re-raises
         its error."""
         if self._closed:
             raise TransportError(f"peer {self.address} closed",
                                  transient=False)
-        item = _SendItem(frame, wait=True)
+        item = _SendItem(frame, job, wait=True)
         self._queue.put(item)
         item.done.wait()
         if item.error is not None:
             raise item.error
 
-    def enqueue_nowait(self, frame, on_error, receiver) -> int:
+    def enqueue_nowait(self, frame, on_error, receiver, job=None) -> int:
         """Broadcast fan-out: enqueue and return. A full queue (a wedged
         peer) or a later exhausted-retry failure reaches
         ``on_error(receiver, exc)`` with a ``TransportError``. Returns the
         observed queue depth."""
-        item = _SendItem(frame, wait=False, on_error=on_error,
+        item = _SendItem(frame, job, wait=False, on_error=on_error,
                          receiver=receiver)
         if self._closed:
             self._fail(item, TransportError(
@@ -251,7 +257,7 @@ class _Peer:
         try:
             self._queue.put_nowait(item)
         except queue.Full:
-            self._bump("send_queue_overflows")
+            self._bump("send_queue_overflows", job=job)
             self._fail(item, TransportError(
                 f"send queue to {self.address[0]}:{self.address[1]} "
                 f"overflowed ({self._queue.maxsize} frames pending): the "
@@ -316,7 +322,7 @@ class TcpCommManager(BaseCommunicationManager):
         peer = self._peer_for(msg.get_receiver_id())
         # stamp before encoding: every retry ships the identical frame
         self._stamp_seq(msg)
-        peer.enqueue(msg.to_parts())
+        peer.enqueue(msg.to_parts(), job=msg.msg_params.get(WIRE_JOB_KEY))
 
     def broadcast(self, msgs, on_error=None) -> Dict[str, int]:
         """Overlapped fan-out: stamp, encode (once, through the shared
@@ -333,7 +339,8 @@ class TcpCommManager(BaseCommunicationManager):
             peer = self._peer_for(dest)
             self._stamp_seq(msg)
             max_depth = max(max_depth, peer.enqueue_nowait(
-                msg.to_parts(), on_error, dest))
+                msg.to_parts(), on_error, dest,
+                job=msg.msg_params.get(WIRE_JOB_KEY)))
         return {"enqueued": len(msgs), "max_queue_depth": max_depth}
 
     def _serve_conn(self, conn: socket.socket) -> None:
@@ -386,7 +393,12 @@ class TcpCommManager(BaseCommunicationManager):
             item = self._inbox.get()
             if item is _STOP:
                 break
-            self._notify(Message.from_bytes(item))
+            msg = Message.from_bytes(item)
+            # the raw total was counted on the socket thread; the job's
+            # slice needs the decoded tag
+            self._credit_job_received(len(item),
+                                      msg.msg_params.get(WIRE_JOB_KEY))
+            self._notify(msg)
 
     def stop_receive_message(self) -> None:
         self._running = False

@@ -201,11 +201,14 @@ METRICS: Dict[str, Dict[str, str]] = {
                              "fraction observed (the per-round "
                              "trajectory rides the round records' "
                              "wan_available_frac field)"),
-    # -- federation scheduler (fedml_tpu/sched/) ---------------------------
+    # -- federation scheduler (sched/) --------------------------------------
     "sched_device_time": _m(KIND_PHASE, "scheduler",
                             "wall-clock this job held the shared device "
                             "gate (fair-share accounting; solo runs "
-                            "without a gate emit none)"),
+                            "without a gate emit none). On the card the "
+                            "host's hold: launches are asynchronous, so "
+                            "it is device time only where the section "
+                            "ends in a host copy"),
     "sched_gate_wait": _m(KIND_PHASE, "scheduler",
                           "wall-clock this job's actors queued for a "
                           "device slot behind co-tenants (contention "
@@ -320,9 +323,6 @@ METRICS: Dict[str, Dict[str, str]] = {
 #: the JAX names the port does not emit yet -> the ROADMAP item that
 #: brings each (the row stays; nothing is dropped)
 PENDING: Dict[str, str] = {
-    "send_queue_depth": "Slice D item 24 (comm/fanout_smoke.py)",
-    **{n: "Slice D item 22g (the multi-job scheduler)" for n in METRICS
-       if n.startswith("sched_")},
     **{n: "Slice D item 23 (serving)" for n in METRICS
        if n.startswith("serve_")},
     **{n: "Slice D item 23 (state/population.py)" for n in METRICS

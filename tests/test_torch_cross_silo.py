@@ -315,10 +315,38 @@ NOT_PORTED = [
 CONTROL_PLANE = ("server_checkpoint_dir", "checkpoint_sync",
                  "pace_steering", "join_rate_limit")
 
+#: item 22g's hooks, ported since too: a shared fabric's channels and an
+#: interleaver's gate (not the case's value) give the plain run's bits
+SCHEDULER = ("comm_factory", "device_gate")
+
 
 @pytest.mark.parametrize("name, value", NOT_PORTED)
 def test_unported_options_raise_and_name_their_item(name, value, tmp_path):
     ds = make_blob_federated(**BLOB)
+    if name in SCHEDULER:
+        from fedml_tpu_torch.sched import RoundInterleaver, SharedFabric
+        run = dict(worker_num=2, comm_round=2,
+                   train_cfg=TrainConfig(**TRAIN), device="cpu",
+                   join_timeout_s=60)
+        plain, plain_hist = cs.run_fedavg_cross_silo(ds, _lr(ds), **run)
+        fabric = SharedFabric("INPROC", 3)
+        timer = RoundTimer()
+        opts = ({"comm_factory": fabric.comm_factory("job")}
+                if name == "comm_factory" else
+                {"device_gate": RoundInterleaver().gate("job",
+                                                        timer=timer)})
+        try:
+            final, hist = cs.run_fedavg_cross_silo(ds, _lr(ds),
+                                                   timer=timer, **opts,
+                                                   **run)
+        finally:
+            fabric.stop()
+        assert hist == plain_hist
+        for k in plain:
+            torch.testing.assert_close(final[k], plain[k], rtol=0, atol=0)
+        assert (timer.counters.get("sched_device_acquires", 0) > 0) == (
+            name == "device_gate")
+        return
     if name not in CONTROL_PLANE:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cs.run_fedavg_cross_silo(ds, _lr(ds), device="cpu",

@@ -139,6 +139,14 @@ _, ledger, restored = run_simulated_failover(
 assert restored.cp_counters["restores"] == 1, restored.cp_counters
 assert [r["round"] for r in ledger] == [0, 1, 2], ledger
 hist = hist + resumed + routed + deadline_hist
+# two tenant jobs over one shared fabric and one device gate
+from fedml_tpu_torch.sched import JobSpec, launch_jobs
+tenancy = launch_jobs(
+    [JobSpec(id="ta", workers=2, rounds=2, seed=1,
+             compression="delta_int8"),
+     JobSpec(id="tb", workers=3, rounds=1, seed=2, share=2.0)],
+    tempfile.mkdtemp(dir=sys.argv[1]), device="cpu")
+tenancy = {j: len(r["ledger"]) for j, r in tenancy["jobs"].items()}
 # the rest of the FedAvg family through fed_launch
 from fedml_tpu_torch.experiments import fed_launch
 algos = {}
@@ -185,7 +193,8 @@ print(json.dumps({"modules": sorted(sys.modules), "round": final["round"],
                   "obs_rc": obs_rc,
                   "lm_tokens": float(stats["count"]),
                   "silo_rounds": [r["round"] for r in hist],
-                  "algos": algos, "slice_c": slice_c}))
+                  "algos": algos, "slice_c": slice_c,
+                  "tenancy": tenancy}))
 """
 
 
@@ -216,6 +225,7 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
     assert "influence" in out["algos"]["contribution"]
     assert out["slice_c"]["bn_stats_moved"]
     assert out["slice_c"]["rnn_tokens"] > 0
+    assert out["tenancy"] == {"ta": 2, "tb": 1}
     for m in ("ops.aggregate", "ops.flash_attention", "models.transformer",
               "ops.quantize", "comm.compression",
               "algorithms.fedavg_cross_silo", "algorithms.fedopt",
@@ -242,7 +252,9 @@ def test_port_round_imports_no_jax_or_reference_package(tmp_path):
               "utils.fsio", "utils.watchdog", "utils.tracing",
               "comm.faults", "algorithms.fedavg_async", "control",
               "control.checkpoint", "control.pace", "control.manifest",
-              "control.failover_harness"):
+              "control.failover_harness", "sched", "sched.jobs",
+              "sched.router", "sched.interleave", "sched.launcher",
+              "sched.chaos", "sched.__main__", "comm.fanout_smoke"):
         assert f"fedml_tpu_torch.{m}" in out["modules"]
     bad = [m for m in out["modules"] if FORBIDDEN.match(m)
            or REFERENCE.search(m)]

@@ -902,6 +902,12 @@ def test_registry_keeps_every_jax_row_and_names_what_the_port_emits():
     for name in ("ft_retries", "ft_dedup_drops", "ft_conn_errors", "mfu"):
         assert name in pregistry.metric_names()
         assert name not in pregistry.PENDING
+    # the scheduler's rows and the fan-out gauge are emitted since 22g
+    for name in ("sched_device_time", "sched_gate_wait",
+                 "sched_device_acquires", "send_queue_depth"):
+        assert name in emitted
+    assert not [n for n in pregistry.PENDING
+                if n.startswith("sched_") or n == "send_queue_depth"]
 
 
 # -- tests/test_trend.py ------------------------------------------------------

@@ -462,9 +462,9 @@ def test_a_full_send_queue_sheds_to_on_error():
     def run(addresses):
         sink = socket.create_server(addresses[1])
         peer = tcp._Peer(addresses[1], RetryPolicy(max_attempts=1),
-                         bump=lambda name, n=1: counts.update(
+                         bump=lambda name, n=1, job=None: counts.update(
                              {name: counts.get(name, 0) + n}),
-                         on_sent=lambda n: None, queue_depth=1)
+                         on_sent=lambda n, job=None: None, queue_depth=1)
         try:
             with peer.lock:  # the writer takes frame 0 and blocks on it
                 shed = lambda r, e: errors.append(e)  # noqa: E731
